@@ -1,14 +1,13 @@
 """Video-stabilization-style demo: batched frame-to-keyframe registration.
 
 The reference documents its API through notebooks
-(/root/reference/test/inverse_compositional_algorithm.ipynb); this script
-is the equivalent runnable walkthrough for the TPU-native engine, driving
-the workload BASELINE.json calls out ("mosaicking / video stabilization
-style workloads"): a jittered synthetic sequence is registered to its
+(test/inverse_compositional_algorithm.ipynb); this script is the
+equivalent runnable walkthrough, driving a mosaicking / video
+stabilization style workload: a jittered sequence is registered to its
 first frame in ONE batched `align` call (every pair converges
 independently on device), then re-rendered through the estimated warps.
 
-Run:  python examples/stabilize.py [outdir]      (CPU or TPU)
+Run:  python examples/stabilize.py [outdir]      (CPU or GPU)
 """
 
 from __future__ import annotations
@@ -31,15 +30,17 @@ from inverse_compositional_algorithm_tpu.ops.warp import bicubic_sample
 
 def load_scene(h: int, w: int):
     """A REAL Middlebury frame from the reference's test data (the same
-    fixture its notebooks drive — docs/rawData.md), falling back to a
-    synthetic smooth texture when the checkout is absent."""
+    fixture its notebooks drive — docs/rawData.md) when ICA_REFERENCE_DATA
+    names that directory, else a synthetic smooth texture."""
+    import os
+
     try:
         from inverse_compositional_algorithm_tpu.utils.imageio import (
             load_image,
         )
 
-        img = np.asarray(
-            load_image("/root/reference/test/data/rubber_whale.png"),
+        img = np.asarray(load_image(os.path.join(
+            os.environ["ICA_REFERENCE_DATA"], "rubber_whale.png")),
             np.float32)
         y0 = (img.shape[0] - h) // 2
         x0 = (img.shape[1] - w) // 2

@@ -1,12 +1,12 @@
-"""TPU-native parametric image registration (inverse compositional algorithm).
+"""Batched parametric image registration (inverse compositional algorithm).
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 `inverse_compositional_algorithm` reference (IPOL 2016.153 / 2018.222):
 global parametric motion estimation (translation / euclidean / similarity /
 affinity / homography) between image pairs by Gauss-Newton on the
 inverse-compositional formulation, with robust IRLS error functions and a
-coarse-to-fine pyramid — batched, jit-compiled, and shardable across TPU
-meshes.
+coarse-to-fine pyramid — batched, jit-compiled, and shardable across
+device meshes.
 
 Quick start::
 

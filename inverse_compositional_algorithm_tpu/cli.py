@@ -6,6 +6,9 @@ Usage::
         --transform homography --robust charbonnier --nscales 5 \
         --output transform.json --save-warped warped.png
 
+Frames may be `.npy` arrays ([H, W] or [H, W, C], raw 0..255 values);
+other image formats need Pillow (the `io` extra).
+
     python -m inverse_compositional_algorithm_tpu.cli make-config config.ini
     python -m inverse_compositional_algorithm_tpu.cli bench --help
 """
@@ -105,8 +108,9 @@ def main(argv=None) -> int:
     from .utils.profiling import enable_compilation_cache
 
     enable_compilation_cache()
-    ap = argparse.ArgumentParser(prog="ica-tpu",
-                                 description="TPU-native inverse compositional alignment")
+    ap = argparse.ArgumentParser(
+        prog="ica-align",
+        description="batched inverse compositional image alignment")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     al = sub.add_parser("align", help="align an image pair")

@@ -44,10 +44,8 @@ class AlignConfig:
     pyramid_method: str = "ipol"     # "ipol" | "antialias" (see ops.pyramid)
     precondition: bool = True        # Hartley-normalize the Jacobian columns
     hessian_chunk: int = 16384       # pixels per Hessian accumulation step
-    use_pallas: bool = True          # fused Pallas normal-equation kernel on TPU
-    interpret: bool = False          # run Pallas kernels in interpreter mode
-    #   (CPU-testable validation of the use_pallas paths; keeps use_pallas
-    #   active off-TPU instead of silently rewriting it to False)
+    interpret: bool = False          # run the fused iteration kernel in the
+    #   Pallas interpreter (tests on the CPU; models.api.solver_path)
     verbose: bool = False
     divergence_guard: bool = True    # freeze + flag catastrophically lost pairs
     #   (models.ic._lost_overlap; the reference iterates them to max_iter)

@@ -1,10 +1,10 @@
-"""Plot an EVAL_r*.json sweep record (reference `plot_results` parity).
+"""Plot an eval sweep record (reference `plot_results` parity).
 
 The reference's evaluator renders per-sweep bar charts of accuracy and
 time (test/ica_keras_performance_tests_colab.ipynb, `plot_results`); this
-renders the same three sweeps from a recorded EVAL json.
+renders the same three sweeps from a record written by eval.run_eval.
 
-Run:  python -m inverse_compositional_algorithm_tpu.eval.plots EVAL_r03.json [outdir]
+Run:  python -m inverse_compositional_algorithm_tpu.eval.plots RECORD.json [outdir]
 """
 
 from __future__ import annotations
@@ -54,8 +54,12 @@ def plot_record(record: dict, outdir: str = "eval_plots") -> list[str]:
 
 
 def main(argv=None) -> list[str]:
+    """python -m inverse_compositional_algorithm_tpu.eval.plots RECORD.json
+    [OUTDIR]: plot an eval sweep record (eval.run_eval) into OUTDIR."""
     argv = sys.argv[1:] if argv is None else argv
-    src = argv[0] if argv else "EVAL_r03.json"
+    if not argv:
+        raise SystemExit("usage: plots RECORD.json [OUTDIR]")
+    src = argv[0]
     outdir = argv[1] if len(argv) > 1 else "eval_plots"
     with open(src) as f:
         record = json.load(f)

@@ -1,4 +1,4 @@
-"""Run the evaluation sweeps and record an EVAL_r*.json artifact.
+"""Run the evaluation sweeps and record them as one JSON artifact.
 
 Mirrors the reference's recorded notebook sweeps
 (test/ica_keras_performance_tests_colab.ipynb cells 18/24/29): transform
@@ -8,9 +8,9 @@ MSE/MAE/max), converged fraction, and throughput per configuration.
 Run:  python -m inverse_compositional_algorithm_tpu.eval.run_eval [out.json]
 
 Image set (content diversity, VERDICT r3 item 5): the reference evaluator
-sweeps hundreds of distinct imagenette photos (colab cell 13); this
-environment has no network, so the bank is built from every reference
-Middlebury image at multiple distinct crops and scales plus procedural
+sweeps hundreds of distinct imagenette photos (colab cell 13); without
+network access the bank is built from every reference Middlebury image
+(ICA_REFERENCE_DATA) at multiple distinct crops and scales plus procedural
 textures spanning a range of spectra (band-pass filtered noise at varied
 cutoffs and multi-scale mixtures) — 64 distinct 256x256 contents per
 sweep, no replication. Periodic patterns (gratings, checkerboards) are
@@ -41,7 +41,9 @@ from .harness import (
 
 REF_IMAGES = ("rubber_whale.png", "dimetrodon.png", "hydrangea.png",
               "lena_color.tiff", "mandrill.tiff", "peppers3.tif")
-REF_DIR = "/root/reference/test/data"
+# The reference checkout's test images (test/data), if ICA_REFERENCE_DATA
+# names that directory; procedural textures fill the bank otherwise.
+REF_DIR = os.environ.get("ICA_REFERENCE_DATA", "")
 
 
 def _reference_crops(size: int) -> list:

@@ -1,1 +1,1 @@
-"""Solver drivers and public API (the reference L5 layer, TPU-native)."""
+"""Solver drivers and public API (the reference L5 layer)."""

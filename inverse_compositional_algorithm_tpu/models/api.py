@@ -28,10 +28,9 @@ from ..ops.transforms import (
     transform_grid,
 )
 from ..ops.warp import bicubic_sample, warp_image
-from .ic import ICState
 from .pyramidal import pyramidal_solve
 
-__all__ = ["AlignResult", "align", "warp", "transform_image"]
+__all__ = ["AlignResult", "align", "solver_path", "warp", "transform_image"]
 
 
 @jax.tree_util.register_dataclass
@@ -49,53 +48,69 @@ class AlignResult:
     valid: Any    # [B, H, W] bool, warp in-domain mask
     diverged: Any  # [B] bool, finest-scale divergence guard tripped
     #   (p reverted to that scale's warm start; see models.ic._lost_overlap)
+    level_niters: Any  # [B, nscales] trips applied per level, coarsest first
 
     def params(self, config: AlignConfig):
         """Un-padded parameter vector(s) for the configured model."""
         return self.p[..., : nparams(config.transform)]
 
 
-def _align_impl(i1, i2, p0, config: AlignConfig):
-    """Unjitted batched pipeline — the jit/pjit target (parallel.sharded
-    re-jits this with mesh shardings)."""
-    state, _ = pyramidal_solve(
+def solver_path(dtype=jnp.float32, interpret: bool = False,
+                platform: str | None = None) -> str:
+    """The one rule that picks how each solver trip runs (models.ic.PATHS).
+
+      * interpret=True: "interpret", the fused kernel in the Pallas
+        interpreter. Only when asked, and only for tests.
+      * a GPU and float32: "kernel", the fused kernel compiled for the
+        card (ops/pallas/fused_iter.py). No shape, motion or option makes
+        it give way to the plain iteration: the kernel masks its own edges
+        and serves every transform, loss and preconditioning setting.
+      * everything else: "xla", the plain op chain. On the CPU this is the
+        only path, since the CPU is the device there; on a GPU it serves the
+        dtypes the float32 kernel does not compute in (float64, bfloat16).
+
+    platform defaults to jax.default_backend().
+    """
+    if interpret:
+        return "interpret"
+    platform = platform or jax.default_backend()
+    if platform == "gpu" and jnp.dtype(dtype) == jnp.float32:
+        return "kernel"
+    return "xla"
+
+
+def _align_impl(i1, i2, p0, config: AlignConfig, path: str):
+    """Unjitted batched pipeline — the jit target (parallel.sharded maps
+    it over the pairs axis of a mesh)."""
+    state, per_scale = pyramidal_solve(
         i1, i2, p0, config.transform,
         nscales=config.nscales, nu=config.nu, tol=config.tol,
         max_iter=config.max_iter, robust=config.robust, lam=config.lam,
         nanifoutside=config.nanifoutside, delta=config.delta,
         pyramid_method=config.pyramid_method,
         precondition=config.precondition,
-        hessian_chunk=config.hessian_chunk, use_pallas=config.use_pallas,
-        interpret=config.interpret, verbose=config.verbose,
+        hessian_chunk=config.hessian_chunk, path=path,
+        verbose=config.verbose,
         divergence_guard=config.divergence_guard,
         delta_cap=config.delta_cap,
     )
-    warp_mode = None
-    if config.use_pallas:
-        from ..ops.pallas.warp import pad_planar, plan_warp_mode, warp_image_fast
+    return _finish(i1, i2, state, per_scale, config)
 
-        warp_mode = plan_warp_mode(i2.shape[1], i2.shape[2], i2.shape[3],
-                                   i2.dtype)
-    if warp_mode is not None:
-        gx, gy = transform_grid(state.p, config.transform,
-                                i2.shape[1], i2.shape[2])
-        iw, valid = warp_image_fast(i2, pad_planar(i2), gx, gy,
-                                    config.delta,
-                                    interpret=config.interpret,
-                                    stream=(warp_mode == "stream"))
-    else:
-        iw, valid = warp_image(i2, state.p, config.transform, config.delta)
-    if config.nanifoutside:
-        fill = jnp.asarray(jnp.nan, iw.dtype)
-    else:
-        fill = jnp.asarray(0.0, iw.dtype)
+
+def _finish(i1, i2, state, per_scale, config: AlignConfig) -> AlignResult:
+    """Final warp at the solved p (plain XLA; it runs once per call)."""
+    iw, valid = warp_image(i2, state.p, config.transform, config.delta)
+    fill = jnp.asarray(jnp.nan if config.nanifoutside else 0.0, iw.dtype)
     iw = jnp.where(valid[..., None], iw, fill)
-    di = iw - i1
     return AlignResult(p=state.p, error=state.error, niters=state.niters,
-                       di=di, iw=iw, valid=valid, diverged=state.diverged)
+                       di=iw - i1, iw=iw, valid=valid,
+                       diverged=state.diverged,
+                       level_niters=jnp.stack([s.niters for s in per_scale],
+                                              axis=-1))
 
 
-_align_batched = partial(jax.jit, static_argnames=("config",))(_align_impl)
+_align_batched = partial(jax.jit, static_argnames=("config", "path"))(
+    _align_impl)
 
 
 def align(i1, i2, config: AlignConfig = AlignConfig(), p0=None,
@@ -109,16 +124,12 @@ def align(i1, i2, config: AlignConfig = AlignConfig(), p0=None,
       config: static algorithm configuration.
       p0: optional warm-start parameters, [k], [8], [B, k] or [B, 8].
 
+    The per-trip path follows `solver_path(dtype, config.interpret)`.
+
     Returns:
       AlignResult (batch dims match the input rank).
     """
     config.validate()
-    if config.use_pallas and not config.interpret and (
-            jax.default_backend() != "tpu" or dtype != jnp.float32):
-        # The fused Mosaic kernel targets TPU/f32; elsewhere use the pure
-        # XLA path (identical semantics, same oracle-tested math) — unless
-        # interpret mode explicitly asks to exercise the Pallas branches.
-        config = config.replace(use_pallas=False)
     i1 = jnp.asarray(i1)
     i2 = jnp.asarray(i2)
     if i1.shape != i2.shape:
@@ -141,11 +152,10 @@ def align(i1, i2, config: AlignConfig = AlignConfig(), p0=None,
         else:
             p0 = pad_params(p0)
 
-    res = _align_batched(i1, i2, p0, config)
+    res = _align_batched(i1, i2, p0, config,
+                         solver_path(dtype, config.interpret))
     if single:
-        res = AlignResult(p=res.p[0], error=res.error[0], niters=res.niters[0],
-                          di=res.di[0], iw=res.iw[0], valid=res.valid[0],
-                          diverged=res.diverged[0])
+        res = jax.tree_util.tree_map(lambda x: x[0], res)
     return res
 
 

@@ -9,7 +9,7 @@ One device-resident loop serves both algorithm variants of the reference:
   * robust IRLS   — per-iteration rho' weights and lambda annealing
     (reference: src/inverse_compositional_algorithm.py:135-261, tf at :339-465).
 
-TPU-first deviations from the reference (documented, all strict upgrades):
+Deviations from the reference (documented, all strict upgrades):
   * the whole iteration runs inside `lax.while_loop` with **per-pair**
     convergence masking. The reference's TF batch shares one convergence
     criterion (src/keras-tf/tf_inverse_compositional_algorithm.py:225-232 —
@@ -36,6 +36,9 @@ from .. import constants as cts
 from ..ops.gradients import boundary_band_mask, central_gradients
 from ..ops.normal_equations import (
     RobustLoss,
+    assemble_hessian,
+    assemble_rhs,
+    coordinate_moments,
     grad_moments,
     hessian,
     residual_moments,
@@ -53,9 +56,15 @@ from ..ops.transforms import (
     transform_grid,
     transform_points,
 )
-from ..ops.warp import warp_image
+from ..ops.warp import bicubic_sample, domain_mask
 
-__all__ = ["ICState", "ic_solve", "effective_delta"]
+__all__ = ["ICState", "ic_solve", "effective_delta", "normal_system", "PATHS"]
+
+# Per-trip implementations of the normal equations (models.api.solver_path
+# chooses one): "kernel" is the fused Pallas kernel compiled for the GPU
+# (ops/pallas/fused_iter.py), "interpret" the same kernel in the Pallas
+# interpreter (tests), "xla" the plain op chain.
+PATHS = ("kernel", "interpret", "xla")
 
 
 @jax.tree_util.register_dataclass
@@ -125,6 +134,165 @@ def _masked_residual(iw, valid, i1, nanifoutside: bool):
     return jnp.where(valid[..., None], iw, jnp.zeros_like(iw)) - i1
 
 
+def _system_builder(i1, i2, ix, iy, ttype: TransformType, *,
+                    robust: RobustLoss, nanifoutside: bool, delta: int,
+                    precondition: bool, hessian_chunk: int, path: str,
+                    y_offset=0, reduce=lambda x: x):
+    """Loop-invariant set-up of one level's normal equations.
+
+    Args:
+      i1, ix, iy: [B, h, W, C] template and its (band-masked) gradients;
+        h is the full height, or a row shard's height.
+      i2: [B, H, W, C] full moving image.
+      y_offset: global row of template row 0 (row split).
+      reduce: sum of per-shard partials (lax.psum over the row axis under
+        row split; identity otherwise).
+
+    Returns:
+      (scale, system): the [8] column preconditioner (None when
+      precondition is False) and system(p, lam) -> (h [B,8,8], b [B,8]),
+      the Gauss-Newton system at p in that metric.
+    """
+    if path not in PATHS:
+        raise ValueError(f"unknown path {path!r}; expected one of {PATHS}")
+    dt = i1.dtype
+    _, hl, ww, _ = i1.shape
+    height = i2.shape[1]
+    is_robust = robust is not RobustLoss.QUADRATIC
+    gmom = grad_moments(ix, iy)
+    scale = param_preconditioner(ttype, height, ww) if precondition else None
+
+    if path == "xla":
+        jx, jy = jacobian_fields(ttype, hl, ww, dtype=dt, scale=scale,
+                                 y_offset=y_offset)
+        h_quad = None
+        if not is_robust:
+            h_quad = reduce(hessian(*gmom, jx, jy, chunk=hessian_chunk))
+
+        def system(p, lam):
+            gx, gy = transform_grid(p, ttype, hl, ww, y_offset=y_offset)
+            iw = bicubic_sample(i2, gx, gy)
+            valid = domain_mask(gx, gy, height, ww, delta)
+            di = _masked_residual(iw, valid, i1, nanifoutside)
+            if is_robust:
+                rho = robust_weights(di, lam[:, None, None], robust)
+                h = reduce(hessian(*gmom, jx, jy, weights=rho,
+                                   chunk=hessian_chunk))
+            else:
+                rho, h = None, h_quad
+            u, v = residual_moments(ix, iy, di)
+            return h, reduce(rhs(u, v, jx, jy, weights=rho))
+
+        return scale, system
+
+    from ..ops.pallas.fused_iter import iteration_moments, pack_template
+
+    # The kernel's moments give the system preconditioned by L = max(H, W)
+    # (ops.normal_equations docstring); unscale it when asked for the raw
+    # system: H = S H~ S, b = S b~.
+    s_l = jnp.asarray(param_preconditioner(ttype, height, ww), jnp.float32)
+    if precondition:
+        unscale = lambda h, b: (h, b)   # noqa: E731
+    else:
+        unscale = lambda h, b: (h * s_l[:, None] * s_l[None, :], b * s_l)  # noqa: E731
+    h_quad = None
+    if not is_robust:
+        m = coordinate_moments(jnp.stack(gmom, axis=1), float(max(height, ww)),
+                               y_offset)
+        h_quad = assemble_hessian(reduce(m), ttype)
+    tpl = pack_template(i1, ix, iy, gmom if is_robust else None)
+
+    def system(p, lam):
+        m = reduce(iteration_moments(
+            i2, tpl, p, lam, ttype=ttype,
+            robust=robust if is_robust else None,
+            nanifoutside=nanifoutside, delta=delta, y_offset=y_offset,
+            interpret=(path == "interpret")))
+        if is_robust:
+            h, b = assemble_hessian(m[:, :3], ttype), assemble_rhs(m[:, 3:], ttype)
+        else:
+            h, b = h_quad, assemble_rhs(m, ttype)
+        h, b = unscale(h, b)
+        return h.astype(dt), b.astype(dt)
+
+    return scale, system
+
+
+def _template_gradients(i1, delta: int, nanifoutside: bool):
+    ix, iy = central_gradients(i1)
+    if nanifoutside and delta > 0:
+        _, hh, ww, _ = i1.shape
+        band = boundary_band_mask(hh, ww, delta).astype(i1.dtype)
+        ix = ix * band[None, :, :, None]
+        iy = iy * band[None, :, :, None]
+    return ix, iy
+
+
+def normal_system(i1, i2, p, lam, ttype: TransformType, *,
+                  robust: RobustLoss = RobustLoss.QUADRATIC,
+                  nanifoutside: bool = True, delta: int = 10,
+                  precondition: bool = True, hessian_chunk: int = 16384,
+                  path: str = "xla", delta_cap: bool = True):
+    """(h, b) of one solver trip at parameters p, as ic_solve forms it.
+
+    The entry point for comparing the paths with each other: the same
+    gradients, band and preconditioning as ic_solve, then one evaluation
+    of the chosen path's per-trip system. lam: [B] robust thresholds.
+    """
+    _, hh, ww, _ = i1.shape
+    if delta_cap:
+        delta = effective_delta(delta, hh, ww)
+    ix, iy = _template_gradients(i1, delta, nanifoutside)
+    _, system = _system_builder(
+        i1, i2, ix, iy, ttype, robust=robust, nanifoutside=nanifoutside,
+        delta=delta, precondition=precondition, hessian_chunk=hessian_chunk,
+        path=path)
+    return system(pad_params(jnp.asarray(p, i1.dtype)),
+                  jnp.asarray(lam, i1.dtype))
+
+
+def _anneal(lam_cur, act, annealing: bool):
+    """Continuation: shrink lambda each trip toward LAMBDA_N (applied after
+    rho, like the reference) — per pair, and only while that pair is still
+    stepping, so frozen/diverged pairs keep a well-defined lambda."""
+    if not annealing:
+        return lam_cur
+    nxt = jnp.where(
+        lam_cur > cts.LAMBDA_N,
+        jnp.maximum(lam_cur * cts.LAMBDA_RATIO, cts.LAMBDA_N),
+        lam_cur,
+    )
+    return jnp.where(act, nxt, lam_cur)
+
+
+def _trip(s: ICState, h, b, p0p, *, ttype: TransformType, height: int,
+          width: int, scale, tol: float, max_iter: int, annealing: bool,
+          divergence_guard: bool) -> ICState:
+    """Solve, compose and convergence bookkeeping of one Gauss-Newton trip
+    (shared by ic_solve and the row-split solver of parallel/tiled.py)."""
+    live = np.zeros(cts.NPARAMS_MAX, np.float32)
+    live[: nparams(ttype)] = 1.0
+    act = s.active
+    lam_next = _anneal(s.lam, act, annealing)
+    dp, err = solve_normal(h, b, live, precond=scale)
+
+    p_new = compose_inverse(s.p, pad_params(dp), ttype)
+    if divergence_guard:
+        bad = act & _lost_overlap(p_new, ttype, height, width)
+        # A lost pair reverts to its warm start — the honest "this level
+        # failed, pass the coarser estimate through" result — and stops
+        # iterating (the flag reports it).
+        p_new = jnp.where(bad[:, None], p0p, p_new)
+    else:
+        bad = jnp.zeros_like(act)
+    err_new = jnp.where(act, err, s.error)
+    still = act & (err > tol) & ~bad & (s.it + 1 < max_iter)
+    return ICState(p=jnp.where(act[:, None], p_new, s.p), error=err_new,
+                   lam=lam_next, it=s.it + 1,
+                   niters=s.niters + act.astype(s.niters.dtype),
+                   active=still, diverged=s.diverged | bad)
+
+
 def ic_solve(
     i1,
     i2,
@@ -139,8 +307,7 @@ def ic_solve(
     delta: int = 10,
     precondition: bool = True,
     hessian_chunk: int = 16384,
-    use_pallas: bool = False,
-    interpret: bool = False,
+    path: str = "xla",
     verbose: bool = False,
     collect_trace: bool = False,
     divergence_guard: bool = True,
@@ -158,9 +325,8 @@ def ic_solve(
         IRLS with that rho'.
       lam: robust threshold; <= 0 enables the LAMBDA_0 -> LAMBDA_N annealing
         schedule (reference: src/inverse_compositional_algorithm.py:223,235-238).
-      interpret: run the Pallas kernels in interpreter mode (CPU-testable
-        validation of the use_pallas solver branch; no effect when
-        use_pallas is False).
+      path: how each trip forms the normal equations, one of PATHS
+        (models.api.solver_path picks it for align).
       collect_trace: when True, iterate a fixed max_iter-step lax.scan
         instead of the early-exiting while_loop and ALSO return the
         per-iteration history (error [max_iter, B], p [max_iter, B, 8],
@@ -201,156 +367,33 @@ def ic_solve(
     if delta_cap:
         delta = effective_delta(delta, hh, ww)
 
-    ix, iy = central_gradients(i1)
-    if nanifoutside and delta > 0:
-        band = boundary_band_mask(hh, ww, delta).astype(dt)[None, :, :, None]
-        ix = ix * band
-        iy = iy * band
-    gxx, gxy, gyy = grad_moments(ix, iy)
-
-    # The fused Pallas paths compute the system in normalized coordinates,
-    # i.e. they *are* the preconditioned system; fall back to XLA otherwise.
-    fused = use_pallas and precondition and dt == jnp.float32
-    scale = param_preconditioner(ttype, hh, ww) if precondition else None
-    jx, jy = jacobian_fields(ttype, hh, ww, dtype=dt, scale=scale)
-    live = np.zeros(cts.NPARAMS_MAX, np.float32)
-    live[: nparams(ttype)] = 1.0
-
-    if fused:
-        from ..ops.pallas.normal_eq import (
-            _assemble_b, _assemble_h, fused_hessian, fused_normal_eq,
-            fused_rhs,
-        )
-
-    # Fully-fused iteration plan: ONE Pallas kernel per iteration computes
-    # warp -> residual -> rho' -> normal-equation moments with no per-pixel
-    # HBM intermediates (ops/pallas/fused_iter.py). The planar operands are
-    # loop-invariant, so build them once here.
-    fast_iter = None
-    fast_warp_ok = False
-    if fused:
-        from ..ops.pallas.fused_iter import fused_iter_moments, plan_fused_iter
-
-        fast_iter = plan_fused_iter(i1, i2, ix, iy, gxx, gxy, gyy,
-                                    robust=is_robust)
-    if use_pallas and fast_iter is None:
-        # Partially-fused fallback: Pallas banded warp replacing the XLA
-        # gather sampler when the shape supports it (ops/pallas/warp.py).
-        from ..ops.pallas.warp import pad_planar, plan_fast_warp, warp_image_fast
-
-        fast_warp_ok = plan_fast_warp(hh, ww, i2.shape[-1], dt)
-        if fast_warp_ok:
-            i2_planar = pad_planar(i2)
-
-    h_quad = None
-    if not is_robust:
-        if fused:
-            h_quad = fused_hessian(gxx, gxy, gyy, ttype=ttype,
-                                   interpret=interpret)
-        else:
-            h_quad = hessian(gxx, gxy, gyy, jx, jy, chunk=hessian_chunk)
-
-    lam0 = lam if lam > 0 else cts.LAMBDA_0
-
-    def _anneal(lam_cur, act):
-        if not is_robust or lam > 0:
-            return lam_cur
-        # Continuation: shrink lambda each iteration toward LAMBDA_N
-        # (applied after rho, like the reference) — per pair, and only
-        # while that pair is still stepping, so frozen/diverged pairs keep
-        # a well-defined lambda for diagnostics.
-        nxt = jnp.where(
-            lam_cur > cts.LAMBDA_N,
-            jnp.maximum(lam_cur * cts.LAMBDA_RATIO, cts.LAMBDA_N),
-            lam_cur,
-        )
-        return jnp.where(act, nxt, lam_cur)
-
-    def _normal_eq_from_residual(s, iw, valid):
-        """(h, b) via the separate-op pipeline (XLA / partial Pallas)."""
-        di = _masked_residual(iw, valid, i1, nanifoutside)
-        if is_robust:
-            rho = robust_weights(di, s.lam[:, None, None], robust)
-            h = None if fused else hessian(gxx, gxy, gyy, jx, jy,
-                                           weights=rho, chunk=hessian_chunk)
-        else:
-            rho = None
-            h = h_quad
-        u, v = residual_moments(ix, iy, di)
-        if fused:
-            if is_robust:
-                h, b = fused_normal_eq(rho * gxx, rho * gxy, rho * gyy,
-                                       rho * u, rho * v, ttype=ttype,
-                                       interpret=interpret)
-            else:
-                b = fused_rhs(u, v, ttype=ttype, interpret=interpret)
-        else:
-            b = rhs(u, v, jx, jy, weights=rho)
-        return h, b
+    ix, iy = _template_gradients(i1, delta, nanifoutside)
+    scale, system = _system_builder(
+        i1, i2, ix, iy, ttype, robust=robust, nanifoutside=nanifoutside,
+        delta=delta, precondition=precondition, hessian_chunk=hessian_chunk,
+        path=path)
+    p0p = pad_params(jnp.asarray(p0, dt))
+    trip = partial(_trip, p0p=p0p, ttype=ttype, height=hh, width=ww,
+                   scale=scale, tol=tol, max_iter=max_iter,
+                   annealing=is_robust and lam <= 0,
+                   divergence_guard=divergence_guard)
 
     def body(s: ICState) -> ICState:
-        if fast_iter is not None:
-            # Fully-fused iteration: ONE kernel computes the whole normal
-            # system, exact for arbitrary motion (no fallback cond — a
-            # data-dependent lax.cond around a pallas_call faulted the TPU
-            # runtime, and the kernel no longer needs one).
-            gx, gy = transform_grid(s.p, ttype, hh, ww)
-            m = fused_iter_moments(
-                fast_iter.i2p, fast_iter.tplp, gx, gy, s.lam,
-                height=hh, width=ww,
-                robust=robust if is_robust else None,
-                nanifoutside=nanifoutside, delta=delta,
-                interpret=interpret, stream=fast_iter.stream)
-            if is_robust:
-                h = _assemble_h(m[:, :3], ttype, hh, ww)
-                b = _assemble_b(m[:, 3:], ttype, hh, ww)
-            else:
-                h, b = h_quad, _assemble_b(m, ttype, hh, ww)
-        else:
-            if fast_warp_ok:
-                gx, gy = transform_grid(s.p, ttype, hh, ww)
-                iw, valid = warp_image_fast(i2, i2_planar, gx, gy, delta,
-                                            interpret=interpret)
-            else:
-                iw, valid = warp_image(i2, s.p, ttype, delta)
-            h, b = _normal_eq_from_residual(s, iw, valid)
-
-        act = s.active
-        lam_next = _anneal(s.lam, act)
-        dp, err = solve_normal(h, b, live, precond=scale)
-
-        p_new = compose_inverse(s.p, pad_params(dp), ttype)
-        if divergence_guard:
-            bad = act & _lost_overlap(p_new, ttype, hh, ww)
-            # A lost pair reverts to its warm start — the honest "this
-            # level failed, pass the coarser estimate through" result —
-            # and stops iterating (the flag reports it).
-            p_new = jnp.where(bad[:, None], p0p, p_new)
-        else:
-            bad = jnp.zeros_like(act)
-        p = jnp.where(act[:, None], p_new, s.p)
-        error = jnp.where(act, err, s.error)
-        niters = s.niters + act.astype(s.niters.dtype)
-        still = act & (err > tol) & ~bad
-        still = still & (s.it + 1 < max_iter)
-
+        h, b = system(s.p, s.lam)
+        s2 = trip(s, h, b)
         if verbose:
             # lambda printed post-anneal, the C++ verbose convention
             # (docs/Algortihm Report.md:351: first line shows 72 = 80*0.9).
             jax.debug.print(
                 "iter {i}: |Dp|={e} p={p} lambda={l}",
-                i=s.it, e=error, p=p, l=lam_next, ordered=True,
+                i=s.it, e=s2.error, p=s2.p, l=s2.lam, ordered=True,
             )
+        return s2
 
-        return ICState(p=p, error=error, lam=lam_next, it=s.it + 1,
-                       niters=niters, active=still,
-                       diverged=s.diverged | bad)
-
-    p0p = pad_params(jnp.asarray(p0, dt))
     init = ICState(
         p=p0p,
         error=jnp.full((bsz,), 1e10, dt),
-        lam=jnp.full((bsz,), lam0, dt),
+        lam=jnp.full((bsz,), lam if lam > 0 else cts.LAMBDA_0, dt),
         it=jnp.asarray(0, jnp.int32),
         niters=jnp.zeros((bsz,), jnp.int32),
         active=jnp.ones((bsz,), bool),

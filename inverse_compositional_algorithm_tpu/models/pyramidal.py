@@ -48,8 +48,7 @@ def pyramidal_solve(
     pyramid_method: str = "ipol",
     precondition: bool = True,
     hessian_chunk: int = 16384,
-    use_pallas: bool = False,
-    interpret: bool = False,
+    path: str = "xla",
     verbose: bool = False,
     collect_trace: bool = False,
     divergence_guard: bool = True,
@@ -90,7 +89,7 @@ def pyramidal_solve(
             tol=tol, max_iter=max_iter, robust=robust, lam=lam,
             nanifoutside=nanifoutside, delta=delta,
             precondition=precondition, hessian_chunk=hessian_chunk,
-            use_pallas=use_pallas, interpret=interpret, verbose=verbose,
+            path=path, verbose=verbose,
             collect_trace=collect_trace, divergence_guard=divergence_guard,
             delta_cap=delta_cap,
         )

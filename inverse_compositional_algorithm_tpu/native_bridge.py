@@ -1,8 +1,9 @@
 """ctypes bridge to the native CPU engine (native/ica_cpu.cc).
 
-Builds on demand with `make -C native` if g++ is available; all entry
-points degrade gracefully (raise NativeUnavailable) when the library can't
-be built, so the pure-JAX path never depends on it. See native/ica_cpu.cc
+Builds on first use with `make -C native` into native/build/ (for the
+host that runs it: -march=native) if g++ is available; all entry points
+degrade gracefully (raise NativeUnavailable) when the library can't be
+built, so the pure-JAX path never depends on it. See native/ica_cpu.cc
 for the role this plays (the reference's Numba tier, reimplemented as
 portable C++/OpenMP).
 """
@@ -19,7 +20,7 @@ __all__ = ["NativeUnavailable", "available", "warp_bicubic", "gradients",
            "normal_eq", "solve"]
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SO = os.path.join(_REPO, "native", "libica_cpu.so")
+_SO = os.path.join(_REPO, "native", "build", "libica_cpu.so")
 _lib = None
 _tried = False
 
@@ -36,9 +37,15 @@ def _load():
         raise NativeUnavailable("native library unavailable (build failed)")
     _tried = True
     if not os.path.exists(_SO):
+        # Build under a private name, then rename: several processes (test
+        # workers) may build at once, and each sees either no library or a
+        # whole one.
+        tmp = f"{_SO}.{os.getpid()}.tmp"
         try:
-            subprocess.run(["make", "-C", os.path.join(_REPO, "native")],
+            subprocess.run(["make", "-C", os.path.join(_REPO, "native"),
+                            f"OUT={tmp}"],
                            check=True, capture_output=True, timeout=120)
+            os.replace(tmp, _SO)
         except Exception as e:  # noqa: BLE001
             raise NativeUnavailable(f"could not build native library: {e}")
     lib = ctypes.CDLL(_SO)

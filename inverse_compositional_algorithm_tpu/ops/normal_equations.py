@@ -1,4 +1,4 @@
-"""Gauss-Newton normal equations, channel-reduced for the MXU.
+"""Gauss-Newton normal equations, channel-reduced.
 
 The reference materializes the steepest-descent images DIJ[B,H,W,C,8] and
 einsum-contracts them every iteration (reference: src/derivatives.py:73-107,
@@ -20,21 +20,37 @@ with which
     b_n    = sum_p w_p (u_p Jx_n + v_p Jy_n)
     H_{nm} = sum_p w_p (gxx JxJx + gxy (JxJy + JyJx) + gyy JyJy)_{nm}
 
-— plain tall [B, P] @ [P, 8] contractions that XLA tiles straight onto the
-MXU, with HBM traffic equal to reading the scalar maps once (speed of
-light). The Hessian is accumulated over row chunks with lax.scan so no
-[B, P, 8] intermediate ever exists. w is the IRLS weight rho' (1 for the
-quadratic algorithm).
+— plain tall [B, P] @ [P, 8] contractions, with memory traffic equal to
+reading the scalar maps once. The Hessian is accumulated over row chunks
+with lax.scan so no [B, P, 8] intermediate ever exists. w is the IRLS
+weight rho' (1 for the quadratic algorithm).
+
+Moment form. Every Jacobian column is a polynomial of degree <= 2 in the
+pixel coordinates, so every entry of H and b is a fixed linear combination
+of the weighted coordinate moments
+
+    M_k[j, i] = sum_p w_k(p) (x/L)^i (y/L)^j,     i, j in 0..4,  L = max(H, W)
+
+of the five maps (w gxx, w gxy, w gyy, w u, w v). `coordinate_moments` is
+the plain form of these moments (the reference of the fused iteration
+kernel, ops/pallas/fused_iter.py), and `assemble_hessian` /
+`assemble_rhs` turn them into H and b with static per-transform tensors.
+Normalizing by L is exactly the Hartley preconditioning of
+ops.transforms.param_preconditioner, so the assembled system is the
+preconditioned one.
 """
 
 from __future__ import annotations
 
 import enum
+import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from ..constants import NPARAMS_MAX
+from .transforms import TransformType
 
 __all__ = [
     "RobustLoss",
@@ -43,9 +59,14 @@ __all__ = [
     "robust_weights",
     "hessian",
     "rhs",
+    "coordinate_moments",
+    "assemble_hessian",
+    "assemble_rhs",
     "cholesky_solve8",
     "solve_normal",
 ]
+
+NPOW = 5   # coordinate powers 0..4 of the moment form
 
 
 class RobustLoss(enum.Enum):
@@ -170,9 +191,10 @@ def hessian(gxx, gxy, gyy, jx, jy, weights=None, chunk: int = 16384):
     def step(acc, args):
         w1c, w2c, w3c, jxk, jyk = args
         # [B, chunk, 8] transient per term; contraction over the chunk axis
-        # is an MXU matmul with K = chunk. Precision.HIGHEST forces true-f32
-        # MXU passes — the TPU default (bf16 inputs) destroys the normal
-        # equations' 7 significant digits and stalls convergence.
+        # is a matmul with K = chunk. Precision.HIGHEST keeps it in true
+        # float32: a reduced-precision product (TF32 or bf16 inputs)
+        # destroys the normal equations' 7 significant digits and stalls
+        # convergence.
         kw = dict(preferred_element_type=acc_dt, precision=jax.lax.Precision.HIGHEST)
         xx = jnp.einsum("bp,pn,pm->bnm", w1c, jxk, jxk, **kw)
         xy = jnp.einsum("bp,pn,pm->bnm", w2c, jxk, jyk, **kw)
@@ -213,9 +235,112 @@ def rhs(u, v, jx, jy, weights=None):
         vf = vf * wf
     jxf = jx.reshape(-1, NPARAMS_MAX).astype(acc_dt)
     jyf = jy.reshape(-1, NPARAMS_MAX).astype(acc_dt)
-    hi = jax.lax.Precision.HIGHEST  # true-f32 MXU; see hessian() note
+    hi = jax.lax.Precision.HIGHEST  # true float32; see hessian() note
     return (jnp.matmul(uf, jxf, precision=hi)
             + jnp.matmul(vf, jyf, precision=hi))
+
+
+def coordinate_moments(maps, norm_len: float, y_offset=0):
+    """Plain weighted coordinate moments of the module docstring.
+
+    Args:
+      maps: [B, K, H, W] weight maps.
+      norm_len: L, the full frame's max(height, width).
+      y_offset: global row of row 0 (row-split callers), may be traced.
+
+    Returns:
+      [B, K, 5, 5] with M[b, k, j, i] = sum_p maps (x/L)^i (y/L)^j.
+    """
+    _, _, h, w = maps.shape
+    acc = jnp.promote_types(maps.dtype, jnp.float32)
+    xn = jnp.arange(w, dtype=acc) / norm_len
+    yn = (jnp.arange(h, dtype=acc) + jnp.asarray(y_offset, acc)) / norm_len
+    xp = jnp.stack([xn ** i for i in range(NPOW)], axis=-1)     # [W, 5]
+    yp = jnp.stack([yn ** j for j in range(NPOW)], axis=-1)     # [H, 5]
+    return jnp.einsum("bkhw,wi,hj->bkji", maps.astype(acc), xp, yp,
+                      precision=jax.lax.Precision.HIGHEST)
+
+
+def _column_polys(ttype: TransformType):
+    """Per parameter column n: 3x3 coefficient grids [y-pow, x-pow] of the
+    *preconditioned* Jacobian columns in normalized coordinates (x/L, y/L).
+    Preconditioning divides each column by L^deg, so the normalized
+    coefficients are exactly the raw integer ones."""
+    def g(**terms):
+        c = np.zeros((3, 3))
+        for key, v in terms.items():
+            a, b = int(key[1]), int(key[2])   # key like "p10" = x^1 y^0
+            c[b, a] = v
+        return c
+
+    zero = g()
+    one = g(p00=1.0)
+    x = g(p10=1.0)
+    y = g(p01=1.0)
+    if ttype is TransformType.TRANSLATION:
+        jx, jy = [one, zero], [zero, one]
+    elif ttype is TransformType.EUCLIDEAN:
+        jx, jy = [one, zero, -y], [zero, one, x]
+    elif ttype is TransformType.SIMILARITY:
+        jx, jy = [one, zero, x, -y], [zero, one, y, x]
+    elif ttype is TransformType.AFFINITY:
+        jx = [one, zero, x, y, zero, zero]
+        jy = [zero, one, zero, zero, x, y]
+    elif ttype is TransformType.HOMOGRAPHY:
+        x2, xy, y2 = g(p20=-1.0), g(p11=-1.0), g(p02=-1.0)
+        jx = [x, y, one, zero, zero, zero, x2, xy]
+        jy = [zero, zero, zero, x, y, one, xy, y2]
+    else:  # pragma: no cover
+        raise ValueError(f"unknown transform type {ttype}")
+    pad = [zero] * (NPARAMS_MAX - len(jx))
+    return jx + pad, jy + pad
+
+
+@functools.lru_cache(maxsize=None)
+def _assembly(ttype: TransformType):
+    """(T_h [8,8,3,5,5], T_b [8,2,5,5]) constant contraction tensors:
+    H[n,m] = sum_{k,j,i} T_h[n,m,k,j,i] M[k,j,i], k over (w gxx, w gxy, w gyy);
+    b[n]   = sum_{k,j,i} T_b[n,k,j,i] M[k,j,i],   k over (w u, w v)."""
+    jx, jy = _column_polys(ttype)
+
+    def polymul(a, b):
+        out = np.zeros((NPOW, NPOW))
+        for (i, j), va in np.ndenumerate(a):
+            for (k, m), vb in np.ndenumerate(b):
+                out[i + k, j + m] += va * vb
+        return out
+
+    t_h = np.zeros((NPARAMS_MAX, NPARAMS_MAX, 3, NPOW, NPOW))
+    for n in range(NPARAMS_MAX):
+        for m in range(NPARAMS_MAX):
+            t_h[n, m, 0] = polymul(jx[n], jx[m])
+            t_h[n, m, 1] = polymul(jx[n], jy[m]) + polymul(jy[n], jx[m])
+            t_h[n, m, 2] = polymul(jy[n], jy[m])
+    t_b = np.zeros((NPARAMS_MAX, 2, NPOW, NPOW))
+    for n in range(NPARAMS_MAX):
+        t_b[n, 0, :3, :3] = jx[n]
+        t_b[n, 1, :3, :3] = jy[n]
+    # Cached as numpy: a cached jnp array made under a jit trace would leak
+    # the tracer into later traces.
+    return t_h.astype(np.float32), t_b.astype(np.float32)
+
+
+def assemble_hessian(m, ttype: TransformType):
+    """Preconditioned H [B, 8, 8] from the moments [B, 3, >=5, >=5] of
+    (w gxx, w gxy, w gyy)."""
+    t_h, _ = _assembly(ttype)
+    return jnp.einsum("bkji,nmkji->bnm", m[:, :, :NPOW, :NPOW],
+                      jnp.asarray(t_h, m.dtype),
+                      precision=jax.lax.Precision.HIGHEST)
+
+
+def assemble_rhs(m, ttype: TransformType):
+    """Preconditioned b [B, 8] from the moments [B, 2, >=5, >=5] of
+    (w u, w v)."""
+    _, t_b = _assembly(ttype)
+    return jnp.einsum("bkji,nkji->bn", m[:, :, :NPOW, :NPOW],
+                      jnp.asarray(t_b, m.dtype),
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def cholesky_solve8(h, b):
@@ -223,8 +348,8 @@ def cholesky_solve8(h, b):
 
     dp = H^-1 b for h: [B, 8, 8], b: [B, 8]. Unrolling the n=8 factorization
     into straight-line jnp ops keeps the solve inside the fused XLA program
-    (no LU custom-call, which on TPU is f32-only and forces a kernel
-    boundary). Non-SPD input yields NaNs which the caller maps to dp = 0.
+    (no library call and no kernel boundary per iteration). Non-SPD input
+    yields NaNs which the caller maps to dp = 0.
     """
     n = h.shape[-1]
     # lower-triangular factor, built column by column

@@ -1,390 +1,224 @@
-"""Fully-fused IC iteration kernel: warp -> residual -> IRLS weight ->
-normal-equation moments, one pass over the image.
+"""Fused Gauss-Newton iteration kernel (Pallas, Triton route).
 
-This is SURVEY §7's "single hot kernel": everything the solver loop needs
-per Gauss-Newton iteration except the 8x8 solve/compose. The separate-op
-pipeline (ops/pallas/warp.py + models/ic.py + ops/pallas/normal_eq.py)
-streams ~10 full image planes through HBM per iteration and pays several
-kernel dispatches:
+One kernel computes everything one solver trip needs except the 8x8 solve:
+the warp x'(x; p), the 16-tap bicubic sample of the moving image, the masked
+residual DI, the robust weight rho'(sum_c DI^2), the channel-reduced
+moments u = sum_c Ix DI and v = sum_c Iy DI, and the weighted coordinate
+moments of ops.normal_equations (module docstring) of the 5 (robust) or
+2 (quadratic) maps. The plain pipeline it replaces (models/ic.py, "xla"
+path) writes and re-reads iw, valid, DI, rho', u and v through device
+memory; here no per-pixel intermediate leaves registers.
 
-    warp (write iw) -> residual (read iw, i1) -> rho (read di)
-    -> u,v moments (read ix, iy, di) -> stack 5 maps -> moment kernel.
+Layout, one program per (pair, block of BH x BW output pixels):
 
-Here one kernel reads each input plane exactly once and writes only the
-[B, K, 8, 8] coordinate-moment matrices (K = 5 robust / 2 quadratic); no
-per-pixel intermediate ever touches HBM. Per 8x128 output tile:
+  * warp coordinates are computed in the kernel from the pair's 3x3 warp
+    matrix (no coordinate planes are read);
+  * each tap is a load from the NHWC moving image at an index clipped to
+    the frame edge, as in ops.warp.bicubic_sample; the caches serve the
+    overlapping taps of neighbouring pixels;
+  * the template operands (i1, ix, iy and, robust, gxx/gxy/gyy) are one
+    planar [B, P, H_out, W] array read with masked block loads, so the
+    kernel masks its own edges and any frame size runs;
+  * each program writes its partial moments [K, 8, 8] (the [0:5, 0:5]
+    corner is meaningful) and one XLA sum finishes the reduction: blocks
+    run in no order, and partial sums keep the result deterministic.
 
-  1. banded bicubic warp of the planar moving image into a VMEM scratch
-     tile (the shared tile core, ops/pallas/tile_warp.py: fast
-     shared-gather path for smooth warps, per-row banded general path
-     otherwise). Small frames keep the whole plane resident in VMEM;
-     large frames (stream=True) keep it in HBM and read through a
-     double-buffered row-band window prefetched one output band ahead
-     (tile_warp.WindowedImage);
-  2. tile-wide epilogue: masked residual DI, robust weight rho'(sum_c
-     DI^2), channel-reduced moments u = sum_c Ix*DI, v = sum_c Iy*DI
-     (semantics of models/ic._masked_residual +
-     ops.normal_equations.robust_weights/residual_moments, reference
-     src/inverse_compositional_algorithm.py:225-244);
-  3. the five weighted maps contract against per-tile coordinate power
-     matrices on the MXU (same math as ops/pallas/normal_eq.py), giving
-     the tile's contribution to the preconditioned H and b.
+Row split (parallel/tiled.py): `y_offset` is the global row of output row
+0; warp coordinates and moment powers use global rows, so the partial
+moments of the row shards sum to the full-frame moments.
 
-The caller assembles H/b from the moments with the static per-transform
-tensors of ops/pallas/normal_eq. The tile core is exact for arbitrary
-motion (segment-looped general path, tile_warp.py), so there is no
-fallback and no data-dependent cond around the kernel.
+Everything is float32 and there is no matrix product, so no TF32 enters.
 """
 
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
-from typing import Any
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ..normal_equations import RobustLoss, rhop
-from .tile_warp import HB, TR, TW, ResidentImage, warp_tile
-from .warp import (
-    _stream_prologue,
-    band_starts,
-    pad_planar,
-    stream_window_rows,
-)
+from ..normal_equations import NPOW, RobustLoss, rhop
+from ..transforms import TransformType, params_to_matrix
+from ..warp import keys_cubic_weights
 
-__all__ = ["FusedIterPlan", "plan_fused_iter", "fused_iter_moments"]
+__all__ = ["iteration_moments", "pack_template", "BLOCK", "NUM_WARPS"]
 
-_KPAD = 8   # moment maps padded to one sublane tile
+BLOCK = (8, 64)     # output pixels per program (rows, columns); tuned on H100
+NUM_WARPS = 8
+_NCOEF = 16         # per-pair scalars: 3x3 warp matrix, lambda, y_offset
 
 
-def _iter_kernel(lam_ref, yoff_ref, gx_ref, gy_ref, img_ref, tpl_ref,
-                 m_ref, iw_ref, wx_ref, *, height,
-                 width, chans, inv_l, robust: RobustLoss | None,
-                 nanifoutside: bool, delta: int, nk: int, grid_h: int,
-                 ablate: frozenset = frozenset()):
-    # lam is a scalar-prefetch [B] array (SMEM); pick this pair's entry.
-    lam = lam_ref[pl.program_id(0)]
-    _iter_common(lam, yoff_ref[0], gx_ref, gy_ref, ResidentImage(img_ref),
-                 tpl_ref, m_ref, iw_ref, wx_ref,
-                 height=height, width=width, chans=chans, inv_l=inv_l,
-                 robust=robust, nanifoutside=nanifoutside, delta=delta,
-                 nk=nk, grid_h=grid_h, ablate=ablate)
-
-
-def _iter_kernel_stream(ys_ref, lam_ref, yoff_ref, gx_ref, gy_ref, img_ref,
-                        tpl_ref, m_ref, iw_ref,
-                        wx_ref, win_ref, wsem_ref, gband_ref, gsem_ref, *,
-                        height, width, chans, inv_l,
-                        robust: RobustLoss | None,
-                        nanifoutside: bool, delta: int, nk: int,
-                        grid_h: int, wh: int,
-                        ablate: frozenset = frozenset()):
-    img = _stream_prologue(ys_ref, img_ref, win_ref, wsem_ref, wh)
-    img.gband = gband_ref
-    img.gsem = gsem_ref
-    lam = lam_ref[pl.program_id(0)]
-    _iter_common(lam, yoff_ref[0], gx_ref, gy_ref, img, tpl_ref,
-                 m_ref, iw_ref, wx_ref, height=height,
-                 width=width, chans=chans, inv_l=inv_l, robust=robust,
-                 nanifoutside=nanifoutside, delta=delta, nk=nk,
-                 grid_h=grid_h, ablate=ablate)
-
-
-def _iter_common(lam, yoff, gx_ref, gy_ref, img, tpl_ref,
-                 m_ref, iw_ref, wx_ref, *, height, width, chans,
-                 inv_l, robust: RobustLoss | None, nanifoutside: bool,
-                 delta: int, nk: int, grid_h: int,
-                 ablate: frozenset = frozenset()):
+def _kernel(coef_ref, img_ref, tpl_ref, out_ref, *, height, width, chans,
+            out_h, bh, bw, inv_l, robust, nanifoutside, delta, projective):
     f32 = jnp.float32
-    ty = pl.program_id(1)
-    tx = pl.program_id(2)
+    r0 = pl.program_id(1) * bh
+    c0 = pl.program_id(2) * bw
+    rows = r0 + jax.lax.broadcasted_iota(jnp.int32, (bh, bw), 0)
+    cols = c0 + jax.lax.broadcasted_iota(jnp.int32, (bh, bw), 1)
+    ok = (rows < out_h) & (cols < width)
 
-    @pl.when((ty == 0) & (tx == 0))
-    def _():
-        m_ref[...] = jnp.zeros_like(m_ref)
+    m = [coef_ref[k] for k in range(9)]
+    lam = coef_ref[9]
+    x = cols.astype(f32)
+    y = rows.astype(f32) + coef_ref[10]        # global row
 
-    gx = gx_ref[0]
-    gy = gy_ref[0]
-
-    # ---- warp this tile into VMEM scratch (shared tile core) ----
-    def write_row(cc, r, vals):
-        iw_ref[cc, r, :] = vals[0]
-
-    if "epionly" not in ablate:
-        warp_tile(gx, gy, img, write_row,
-                  height=height, width=width, chans=chans, ablate=ablate)
-
-    if "noepi" in ablate:
-        # Measurement-only: price the tile warp alone — keep the warp
-        # scratch live with a trivial accumulate instead of the epilogue.
-        m_ref[0, 0] += iw_ref[0, :8, :8]
-        return
-
-    # ---- tile-wide epilogue: residual, weight, channel-reduced moments ----
+    # x'(x; p), the arithmetic of ops.transforms.transform_grid.
+    gx = m[0] * x + m[1] * y + m[2]
+    gy = m[3] * x + m[4] * y + m[5]
+    if projective:
+        den = m[6] * x + m[7] * y + m[8]
+        gx = gx / den
+        gy = gy / den
     d = float(delta)
     valid = ((gx >= d) & (gx <= (width - 1) - d)
-             & (gy >= d) & (gy <= (height - 1) - d)).astype(f32)
+             & (gy >= d) & (gy <= (height - 1) - d))
 
-    # The template operands stream as ONE packed plane per tile (i1: planes
-    # [0, C), ix: [C, 2C), iy: [2C, 3C), robust (gxx, gxy, gyy): [3C, 3C+3))
-    # — a single DMA stream instead of four per tile.
-    u = jnp.zeros((TR, TW), f32)
-    v = jnp.zeros((TR, TW), f32)
-    t2 = jnp.zeros((TR, TW), f32)
-    for cc in range(chans):
-        i1c = tpl_ref[0, cc]
+    # Bicubic sample (ops.warp.bicubic_sample). Coordinates are clamped to
+    # a finite range first so that the integer taps are always defined;
+    # this changes no in-domain sample.
+    sx = jnp.clip(jnp.where(jnp.isfinite(gx), gx, -4.0), -4.0, width + 3.0)
+    sy = jnp.clip(jnp.where(jnp.isfinite(gy), gy, -4.0), -4.0, height + 3.0)
+    fx = jnp.floor(sx)
+    fy = jnp.floor(sy)
+    wx = keys_cubic_weights(sx - fx)
+    wy = keys_cubic_weights(sy - fy)
+    x0 = fx.astype(jnp.int32)
+    y0 = fy.astype(jnp.int32)
+    iw = [jnp.zeros((bh, bw), f32) for _ in range(chans)]
+    for j in range(4):
+        row = jnp.clip(y0 + (j - 1), 0, height - 1) * width
+        for i in range(4):
+            base = (row + jnp.clip(x0 + (i - 1), 0, width - 1)) * chans
+            wgt = wy[j] * wx[i]
+            for c in range(chans):
+                iw[c] = iw[c] + img_ref[base + c] * wgt
+
+    def plane(k):
+        return plgpu.load(
+            tpl_ref.at[k, pl.ds(r0, bh), pl.ds(c0, bw)], mask=ok, other=0.0)
+
+    # Residual, robust weight and channel-reduced moments
+    # (models.ic._masked_residual, ops.normal_equations.robust_weights /
+    # residual_moments).
+    u = jnp.zeros((bh, bw), f32)
+    v = jnp.zeros((bh, bw), f32)
+    t2 = jnp.zeros((bh, bw), f32)
+    for c in range(chans):
+        i1c = plane(c)
         if nanifoutside:
-            dic = (iw_ref[cc] - i1c) * valid
+            di = jnp.where(valid, iw[c] - i1c, 0.0)
         else:
-            dic = iw_ref[cc] * valid - i1c
-        u = u + tpl_ref[0, chans + cc] * dic
-        v = v + tpl_ref[0, 2 * chans + cc] * dic
-        if robust is not None:
-            t2 = t2 + dic * dic
-
+            di = jnp.where(valid, iw[c], 0.0) - i1c
+        u = u + plane(chans + c) * di
+        v = v + plane(2 * chans + c) * di
+        t2 = t2 + di * di
     if robust is not None:
-        rho = t2 * lam if "norho" in ablate else rhop(t2, lam, robust)
-        maps = ([rho * tpl_ref[0, 3 * chans + k] for k in range(3)]
-                + [rho * u, rho * v])
+        rho = rhop(t2, lam, robust)
+        maps = [rho * plane(3 * chans + k) for k in range(3)]
+        maps += [rho * u, rho * v]
     else:
         maps = [u, v]
 
-    # Real-pixel mask (grid is edge-padded to full tiles). grid_h is the
-    # OUTPUT grid's real row count — the full height normally, the local
-    # shard rows under row-sharded SP (parallel/tiled.py).
-    lx = jax.lax.broadcasted_iota(jnp.int32, (TR, TW), 1) + tx * TW
-    ly = jax.lax.broadcasted_iota(jnp.int32, (TR, TW), 0) + ty * TR
-    ok = ((lx < width) & (ly < grid_h)).astype(f32)
+    # Moments: reduce each map against (x/L)^i over the block's columns,
+    # then against (y/L)^j over its rows.
+    xn = x * inv_l
+    xpow = [jnp.ones((bh, bw), f32)]
+    for _ in range(1, NPOW):
+        xpow.append(xpow[-1] * xn)
+    yn = ((r0 + jax.lax.broadcasted_iota(jnp.int32, (1, bh), 1)).astype(f32)
+          + coef_ref[10]) * inv_l                             # [1, bh]
+    pj = jax.lax.broadcasted_iota(jnp.int32, (8, bh), 0)
+    ypow = jnp.where(pj == 0, 1.0, 0.0).astype(f32)           # [8, bh]
+    cur = jnp.ones((1, bh), f32)
+    for j in range(1, NPOW):
+        cur = cur * yn
+        ypow = jnp.where(pj == j, cur, ypow)
+    col = jax.lax.broadcasted_iota(jnp.int32, (8, 8), 1)
+    for k, w in enumerate(maps):
+        w = jnp.where(ok, w, 0.0)
+        acc = jnp.zeros((8, 8), f32)
+        for i in range(NPOW):
+            s = jnp.sum(w * xpow[i], axis=1)                  # [bh]
+            mj = jnp.sum(ypow * s[None, :], axis=1, keepdims=True)  # [8, 1]
+            acc = acc + jnp.where(col == i, mj, 0.0)
+        out_ref[k] = acc
 
-    # Per-tile x-power matrix, TRANSPOSED layout [8, TW] (powers in
-    # sublanes, x in lanes: one vreg per power row — the [TW, 8] layout
-    # wasted 16 mostly-empty vregs and cost a concat relayout per tile).
-    if "cheapmom" in ablate:
-        # timing only: skip the power construction
-        xt = jax.lax.broadcasted_iota(
-            jnp.int32, (_KPAD, TW), 1).astype(f32) * inv_l
-    else:
-        base = (jax.lax.broadcasted_iota(jnp.int32, (1, TW), 1)
-                + tx * TW).astype(f32) * inv_l
-        xs = []
-        cur = jnp.ones((1, TW), f32)
-        for a in range(_KPAD):
-            if a > 0:
-                cur = cur * base
-            xs.append(cur if a < 5 else jnp.zeros_like(cur))
-        xt = jnp.concatenate(xs, axis=0)                   # [8, TW]
 
-    hi = jax.lax.Precision.HIGHEST
-    # First-stage contraction for all nk maps over the lane (x) axis:
-    # [nk*TR, TW] x [8, TW] -> [nk*TR, 8], accumulated across the row
-    # band's tx steps in VMEM scratch; the y-power reduction runs ONCE per
-    # (pair, row band) at the last tx step instead of per tile.
-    w_all = jnp.concatenate([m * ok for m in maps], axis=0)  # [nk*TR, TW]
-    wx_all = jax.lax.dot_general(
-        w_all, xt, (((1,), (1,)), ((), ())),
-        preferred_element_type=f32, precision=hi)            # [nk*TR, 8]
-
-    @pl.when(tx == 0)
-    def _():
-        wx_ref[...] = wx_all
-
-    @pl.when(tx > 0)
-    def _():
-        wx_ref[...] += wx_all
-
-    @pl.when(tx == pl.num_programs(2) - 1)
-    def _():
-        # y powers use GLOBAL row coordinates: yoff is this shard's global
-        # row origin (0 on a single device), the same global moment basis
-        # as jacobian_fields(y_offset=...).
-        ybase = (jax.lax.broadcasted_iota(jnp.int32, (1, TR), 1)
-                 + ty * TR + yoff).astype(f32) * inv_l
-        ys = []
-        cur = jnp.ones((1, TR), f32)
-        for b in range(_KPAD):
-            if b > 0:
-                cur = cur * ybase
-            ys.append(cur if b < 5 else jnp.zeros_like(cur))
-        y_mat = jnp.concatenate(ys, axis=0)                # [8, TR]
-        wx_acc = wx_ref[...]
-        for k in range(nk):
-            m = jnp.dot(y_mat, wx_acc[k * TR : (k + 1) * TR],
-                        preferred_element_type=f32, precision=hi)
-            m_ref[0, k] += m
+def pack_template(i1, ix, iy, gmom=None):
+    """[B, P, H, W] planar template operands: i1, ix, iy (C planes each)
+    and, for the robust kernel, the gradient moments (gxx, gxy, gyy).
+    Loop-invariant: built once per solve."""
+    parts = [i1, ix, iy]
+    if gmom is not None:
+        parts.append(jnp.stack(gmom, axis=-1))
+    return jnp.concatenate(parts, axis=-1).transpose(0, 3, 1, 2)
 
 
 @functools.partial(jax.jit, static_argnames=(
-    "height", "width", "robust", "nanifoutside", "delta", "interpret",
-    "stream", "ablate"))
-def fused_iter_moments(i2p, tplp, gx, gy, lam,
-                       height: int, width: int,
-                       robust: RobustLoss | None, nanifoutside: bool,
-                       delta: int, interpret: bool = False,
-                       stream: bool = False, ablate: str = "",
-                       y_offset=None):
-    """[B, K, 8, 8] weighted coordinate moments of one IC iteration.
+    "ttype", "robust", "nanifoutside", "delta", "interpret"))
+def iteration_moments(i2, tpl, p, lam, *, ttype: TransformType,
+                      robust: RobustLoss | None, nanifoutside: bool,
+                      delta: int, y_offset=0, interpret: bool = False):
+    """[B, K, 5, 5] weighted coordinate moments of one solver trip.
 
     Args:
-      i2p: [B, C, Hp, Wp] planar moving image (pad_planar) — always the
-        FULL frame (replicated under row sharding: a parametric warp can
-        fetch pixels from anywhere).
-      tplp: [B, P, Hp', Wp] PACKED planar template operands — i1, ix, iy
-        (each C planes, boundary-band pre-masked like models/ic.py), plus
-        (gxx, gxy, gyy) when robust (P = 3C + 3; P = 3C quadratic) — one
-        BlockSpec/DMA stream per tile instead of four. Under row sharding
-        these are built from the LOCAL row shard (plan_fused_iter packs
-        them). A robust-packed plan (P = 3C + 3) is also accepted on the
-        quadratic path; the 3 moment planes still stream but are unread.
-      gx, gy: [B, H_out, W] warp coordinates in GLOBAL frame coordinates;
-        H_out is the full height normally, the local shard rows under SP.
-      lam: [B] (or scalar, broadcast) per-pair runtime robust threshold
-        (ignored when robust is None).
-      robust: RobustLoss, or None for the quadratic path.
-      stream: large-frame mode — the planar moving image stays in HBM and
-        per-(pair, row band) windows of `stream_window_rows` rows are
-        DMA'd into a double-buffered VMEM scratch one band ahead of
-        compute (tile_warp.WindowedImage); tiles whose taps escape the
-        window take the exact general path with direct HBM band DMAs.
-        Numerically identical to the resident mode.
-      y_offset: traced scalar global row index of grid row 0 (row-sharded
-        SP callers pass `axis_index * h_loc`); None/0 on a single device.
-        The moment y-powers use global rows, so shard partials psum into
-        exactly the full-frame moments.
+      i2: [B, H, W, C] moving image, always the full frame.
+      tpl: [B, P, H_out, W] from `pack_template` (P = 3C + 3 robust, 3C
+        quadratic); H_out = H, or a row shard's height.
+      p: [B, 8] padded warp parameters.
+      lam: [B] per-pair robust threshold (unused when robust is None).
+      robust: RobustLoss, or None for the quadratic kernel (K = 2: u, v).
+        Otherwise K = 5: w gxx, w gxy, w gyy, w u, w v with w = rho'.
+      y_offset: global row of output row 0 (traced scalar, row split).
+      interpret: run in the Pallas interpreter (CPU tests).
 
-    Returns:
-      m [B, K, 8, 8], K = 5 (w*gxx, w*gxy, w*gyy, w*u, w*v) or 2 (u, v);
-      assemble with ops.pallas.normal_eq._assemble_h / _assemble_b
-      (after lax.psum over the tile axis when row-sharded).
+    Returns moments in the layout of ops.normal_equations.coordinate_moments;
+    assemble H and b with assemble_hessian / assemble_rhs.
     """
-    b, c, hp8, wp = i2p.shape
-    npl = tplp.shape[1]
-    if robust is not None and npl < 3 * c + 3:
-        raise ValueError(
-            f"robust path needs P = 3C+3 packed planes, got {npl} (C={c})")
-    if npl < 3 * c:
-        raise ValueError(f"packed template needs >= 3C planes, got {npl}")
-    h_out, w_out = gx.shape[-2:]
-    hp = -(-h_out // TR) * TR
-    wg = -(-w_out // TW) * TW
-    if gx.shape[-2:] != (hp, wg):
-        pad = ((0, 0), (0, hp - h_out), (0, wg - w_out))
-        gx = jnp.pad(gx, pad, mode="edge")
-        gy = jnp.pad(gy, pad, mode="edge")
+    return _moments(i2, tpl, p, lam, ttype=ttype, robust=robust,
+                    nanifoutside=nanifoutside, delta=delta, y_offset=y_offset,
+                    interpret=interpret, block=BLOCK)
+
+
+def _moments(i2, tpl, p, lam, *, ttype, robust, nanifoutside, delta,
+             y_offset, interpret, block):
+    """iteration_moments at a given (rows, columns) block size."""
+    b, h, w, c = i2.shape
+    npl, h_out = tpl.shape[1], tpl.shape[2]
     nk = 2 if robust is None else 5
-    lam = jnp.broadcast_to(jnp.asarray(lam, jnp.float32), (b,))
-    yoff = (jnp.zeros((1,), jnp.int32) if y_offset is None
-            else jnp.asarray(y_offset, jnp.int32).reshape(1))
-    grid = (b, hp // TR, wg // TW)
-    out_shape = jax.ShapeDtypeStruct((b, nk, 8, 8), jnp.float32)
-    tile = lambda bb, ty, tx, *_: (bb, ty, tx)
-    kw = dict(height=height, width=width, chans=c,
-              inv_l=1.0 / float(max(height, width)), robust=robust,
-              nanifoutside=nanifoutside, delta=delta, nk=nk, grid_h=h_out,
-              ablate=frozenset(a for a in ablate.split(",") if a))
-
-    if not stream:
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,    # lam [B], yoff [1]
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((1, TR, TW), tile, memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, TR, TW), tile, memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, c, hp8, wp),
-                             lambda bb, ty, tx, *_: (bb, 0, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, npl, TR, TW),
-                             lambda bb, ty, tx, *_: (bb, 0, ty, tx),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((1, nk, 8, 8),
-                                   lambda bb, ty, tx, *_: (bb, 0, 0, 0),
-                                   memory_space=pltpu.VMEM),
-            scratch_shapes=[
-                pltpu.VMEM((c, TR, TW), jnp.float32),       # warped tile
-                pltpu.VMEM((nk * TR, 8), jnp.float32),      # wx row-band acc
-            ],
-        )
-        kernel = functools.partial(_iter_kernel, **kw)
-        return pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=out_shape,
-            interpret=interpret,
-        )(lam, yoff, gx, gy, i2p, tplp)
-
-    # ---- streaming (large-frame) mode ----
-    wh = stream_window_rows(height, width, c)
-    ys = band_starts(gy, hp8, wh)
-    kernel = functools.partial(_iter_kernel_stream, wh=wh, **kw)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,    # ys [B*nty+1], lam [B], yoff [1]
+    if npl < (3 * c if robust is None else 3 * c + 3):
+        raise ValueError(f"template has {npl} planes for C={c}, robust={robust}")
+    bh, bw = block
+    f32 = jnp.float32
+    mat = params_to_matrix(p.astype(f32), ttype).reshape(b, 9)
+    coef = jnp.concatenate([
+        mat,
+        jnp.broadcast_to(jnp.asarray(lam, f32), (b,))[:, None],
+        jnp.broadcast_to(jnp.asarray(y_offset, f32), (b,))[:, None],
+        jnp.zeros((b, _NCOEF - 11), f32)], axis=1)
+    grid = (b, pl.cdiv(h_out, bh), pl.cdiv(w, bw))
+    kernel = functools.partial(
+        _kernel, height=h, width=w, chans=c, out_h=h_out, bh=bh, bw=bw,
+        inv_l=1.0 / float(max(h, w)), robust=robust,
+        nanifoutside=nanifoutside, delta=delta,
+        projective=ttype is TransformType.HOMOGRAPHY)
+    parts = pl.pallas_call(
+        kernel,
         grid=grid,
         in_specs=[
-            pl.BlockSpec((1, TR, TW), tile, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, TR, TW), tile, memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),     # moving image in HBM
-            pl.BlockSpec((1, npl, TR, TW),
-                         lambda bb, ty, tx, *_: (bb, 0, ty, tx),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((None, _NCOEF), lambda n, i, j: (n, 0)),
+            pl.BlockSpec((None, h * w * c), lambda n, i, j: (n, 0)),
+            pl.BlockSpec((None, npl, h_out, w), lambda n, i, j: (n, 0, 0, 0)),
         ],
-        out_specs=pl.BlockSpec((1, nk, 8, 8),
-                               lambda bb, ty, tx, *_: (bb, 0, 0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((c, TR, TW), jnp.float32),       # warped tile
-            pltpu.VMEM((nk * TR, 8), jnp.float32),      # wx row-band acc
-            pltpu.VMEM((2, c, wh, wp), jnp.float32),    # band window x2
-            pltpu.SemaphoreType.DMA((2,)),              # window DMA sems
-            pltpu.VMEM((c, HB, TW), jnp.float32),       # general-path band
-            pltpu.SemaphoreType.DMA(()),                # general-path sem
-        ],
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=out_shape,
+        out_specs=pl.BlockSpec((None, None, None, nk, 8, 8),
+                               lambda n, i, j: (n, i, j, 0, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((b, *grid[1:], nk, 8, 8), f32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
-    )(ys, lam, yoff, gx, gy, i2p, tplp)
-
-
-@dataclass(frozen=True)
-class FusedIterPlan:
-    """Static feasibility + precomputed planar operands for the fused
-    iteration (built once per ic_solve; everything here is loop-invariant).
-
-    `tplp` packs i1/ix/iy (+ gxx/gxy/gyy when robust) into ONE planar
-    array so the kernel streams a single template block per tile."""
-
-    i2p: Any
-    tplp: Any
-    stream: bool = False   # large-frame HBM-streaming mode (see plan_warp_mode)
-
-
-def plan_fused_iter(i1, i2, ix, iy, gxx, gxy, gyy,
-                    robust: bool = True) -> FusedIterPlan | None:
-    """Build the plan, or None when the shape/dtype is unsupported.
-
-    Frames whose double-buffered planar plane fits the VMEM budget use the
-    resident mode (plan_warp_mode == "resident"); larger frames — 720p,
-    1080p, 4K — keep the moving image in HBM and stream row-band windows
-    ("stream"). When robust is False the (gxx, gxy, gyy) planes are not
-    packed (the quadratic kernel never reads them, P = 3C).
-    """
-    from .warp import plan_warp_mode
-
-    b, h, w, c = i1.shape
-    mode = plan_warp_mode(h, w, c, i1.dtype)
-    if mode is None:
-        return None
-    parts = [i1, ix, iy]
-    if robust:
-        parts.append(jnp.stack([gxx, gxy, gyy], axis=-1))
-    return FusedIterPlan(
-        i2p=pad_planar(i2),
-        tplp=pad_planar(jnp.concatenate(parts, axis=-1)),
-        stream=(mode == "stream"),
-    )
+        name="ica_iteration_moments",
+    )(coef, i2.astype(f32).reshape(b, h * w * c), tpl.astype(f32))
+    return parts.sum(axis=(1, 2))[:, :, :NPOW, :NPOW]

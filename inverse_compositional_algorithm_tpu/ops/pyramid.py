@@ -71,7 +71,7 @@ def gaussian_blur(image, sigma: float):
     r = (k.shape[0] - 1) // 2
 
     # Depthwise separable conv: fold channels into the batch dim so a plain
-    # 2-D convolution (which XLA maps straight onto the TPU conv unit) works
+    # 2-D convolution (which XLA hands to the convolution library) works
     # for any channel count.
     b, h, w, c = image.shape
     x = image.transpose(0, 3, 1, 2).reshape(b * c, 1, h, w)
@@ -79,7 +79,7 @@ def gaussian_blur(image, sigma: float):
     kx = k.reshape(1, 1, 1, -1)
     ky = k.reshape(1, 1, -1, 1)
     dn = jax.lax.conv_dimension_numbers(x.shape, kx.shape, ("NCHW", "OIHW", "NCHW"))
-    hi = jax.lax.Precision.HIGHEST  # true-f32 accumulation on TPU
+    hi = jax.lax.Precision.HIGHEST  # true float32 (no TF32/bf16 passes)
     x = jax.lax.conv_general_dilated(x, ky, (1, 1), "VALID", dimension_numbers=dn,
                                      precision=hi)
     x = jax.lax.conv_general_dilated(x, kx, (1, 1), "VALID", dimension_numbers=dn,
@@ -147,7 +147,7 @@ def _zoom_matrices(h: int, w: int, nu: float, method: str):
     the whole IPOL zoom-out is exactly TWO matmuls per level:
     out = M_y^T I M_x with M = G(sigma) @ S. Built in float64, applied in
     float32 — the same taps as conv-then-gather up to summation order, with
-    no MXU-hostile 1-channel depthwise convolutions on the hot path.
+    no 1-channel depthwise convolutions on the hot path.
     """
     nxx, nyy = zoom_size(w, h, nu)
     sigma = _aa_sigma(nu, method)
@@ -170,14 +170,14 @@ def zoom_out(image, nu: float, method: str = "ipol"):
     centers (out + 0.5)/nu - 0.5 like skimage/tf resize.
 
     Blur and resample fold into one constant per-axis matrix each
-    (`_zoom_matrices`), so a pyramid level costs exactly two MXU matmuls —
+    (`_zoom_matrices`), so a pyramid level costs exactly two matmuls —
     no convolutions, no gathers.
     """
     b, h, w, c = image.shape
     m_y, m_x = _zoom_matrices(h, w, nu, method)
     m_y = jnp.asarray(m_y, image.dtype)
     m_x = jnp.asarray(m_x, image.dtype)
-    hi = jax.lax.Precision.HIGHEST  # true-f32 MXU (see gaussian_blur note)
+    hi = jax.lax.Precision.HIGHEST  # true float32 (see gaussian_blur note)
     tmp = jnp.einsum("bhwc,hy->bywc", image, m_y, precision=hi)
     return jnp.einsum("bywc,wx->byxc", tmp, m_x, precision=hi)
 

@@ -6,7 +6,7 @@ hand-expanded closed forms for every operation (reference:
 src/transformation.py:36-263, src/keras-tf/tf_transformation.py:216-351); we
 instead route everything through batched 3x3 homogeneous matrices, which is
 both exactly equivalent algebra (the reference's formulas are the expanded
-adjugate of the same matrix product) and TPU-friendly: one fixed-shape code
+adjugate of the same matrix product) and compiler-friendly: one fixed-shape code
 path for every model, no per-sample map_fn / switch_case.
 
 Parameter layouts (identical to reference src/transformation.py:157-182):
@@ -203,8 +203,8 @@ def compose_inverse(p, dp, ttype: TransformType, guard: float = 1e-10):
 
     mp = params_to_matrix(p, ttype)
     adj = _adjugate3(params_to_matrix(dp, ttype))
-    # HIGHEST: tiny 3x3 product, but TPU's default bf16 matmul precision
-    # would inject ~3e-3 relative error into every composition step.
+    # HIGHEST: tiny 3x3 product, but a reduced-precision matmul (TF32 or
+    # bf16 passes) would inject ~1e-3 relative error into every composition step.
     u = jnp.matmul(mp, adj, precision=jax.lax.Precision.HIGHEST)
     # Homogeneous normalizer. For euclidean/similarity/affine updates this is
     # the 2x2 determinant of M(dp) (the reference's guard quantity); for
@@ -375,7 +375,7 @@ def param_preconditioner(ttype: TransformType, height: int, width: int):
     homography projective terms ~L^2, L = max(H, W)), the classic Hartley
     normalization. This is an accuracy improvement over the reference (which
     solves the raw, badly scaled system in float64 — src/derivatives.py:110-130);
-    it is what makes a float32 TPU solve match the float64 CPU result.
+    it is what makes a float32 device solve match the float64 CPU result.
     """
     L = float(max(height, width))
     ones = np.ones(NPARAMS_MAX, np.float64)

@@ -9,7 +9,7 @@ B-spline — src/bicubic_interpolation.py:199); the three reference variants
 already disagree at the 1e-4 level near boundaries, so we standardize on the
 IPOL/Keys kernel and validate end-to-end against the stored C++ traces.
 
-Design notes (TPU):
+Design notes:
   * no NaN sentinels — out-of-domain pixels are reported through an explicit
     validity mask, which downstream reductions multiply in. This is exactly
     equivalent to the reference's NaN-then-`where(isfinite, ., 0)` pattern

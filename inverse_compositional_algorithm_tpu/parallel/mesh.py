@@ -2,13 +2,13 @@
 
 The reference has no multi-device support at all (SURVEY §2.2); scale-out
 here follows the standard JAX recipe: build a named mesh, annotate array
-shardings, let XLA's SPMD partitioner insert the collectives over ICI/DCN.
+shardings, let XLA insert the collectives between the devices.
 
 Axes:
   * "pairs" — data parallelism over frame pairs (the primary scale-out:
     thousands of concurrent registrations).
   * "tile"  — spatial parallelism over image rows (for frames too large
-    for one chip; the normal equations reduce with psum, see
+    for one device; the normal equations reduce with psum, see
     parallel.tiled).
 """
 
@@ -27,8 +27,8 @@ TILE_AXIS = "tile"
 
 def make_mesh(pairs: int | None = None, tile: int = 1, devices=None) -> Mesh:
     """Mesh over ("pairs", "tile"). Defaults to all devices on the pairs
-    axis. Works identically for real TPU slices and the CPU fake-device
-    test environment."""
+    axis. Works identically for GPUs and the CPU fake-device test
+    environment."""
     devices = list(devices if devices is not None else jax.devices())
     if pairs is None:
         pairs = len(devices) // tile

@@ -3,7 +3,7 @@
 The SP-analogue for image alignment (SURVEY §2.2): row-tiles of the
 template image are sharded over the mesh's "tile" axis, each device
 computes its partial normal equations, and only the tiny 8x8 system + 8
-vector cross the interconnect (`lax.psum` over ICI) per iteration — the
+vector cross the interconnect (`lax.psum`) per iteration — the
 Schur-style layout where images are big but the reduced system is tiny.
 
 Communication pattern per solve:
@@ -11,8 +11,9 @@ Communication pattern per solve:
     the adjacent shard; exchanged once with two `lax.ppermute` shifts
     (bicubic's 4x4 stencil never crosses tiles because warping samples the
     *replicated* moving image, see below).
-  * per iteration — ONE psum of [B, 8, 8] + [B, 8] partial sums. Nothing
-    else moves.
+  * per iteration — ONE psum of partial sums: [B, 8, 8] + [B, 8] on the
+    plain path, the [B, K, 5, 5] coordinate moments on the kernel path.
+    Nothing else moves.
 
 The moving image I2 is replicated across the tile axis: a parametric warp
 can fetch pixels from anywhere in the frame (a 10-px translation already
@@ -21,9 +22,10 @@ crosses any fixed halo), so tile-locality only exists for the *output*
 all per-iteration bandwidth — the warp's 16 taps, residual, moments — is
 spread over the tile axis.
 
-This is the explicit twin of `parallel.sharded.align_sharded(tile_rows=True)`
-(which leaves the partitioning to XLA's SPMD pass); use it when you want
-deterministic, inspectable communication or to pin the collective schedule.
+`parallel.sharded.align_sharded(tile_rows=True)` runs every path through
+this solver (the fused kernel is opaque to XLA's SPMD partitioner, so the
+rows are split here, by hand, for the plain path too); use it directly
+when you want the solver state without the final warp.
 
 The delta-band/boundary semantics use *global* row indices
 (ops.gradients docstring; reference boundary logic at
@@ -47,26 +49,9 @@ except ImportError:  # pragma: no cover
     from jax.experimental.shard_map import shard_map
 
 from .. import constants as cts
-from ..models.ic import ICState, _lost_overlap, _masked_residual
-from ..ops.normal_equations import (
-    RobustLoss,
-    grad_moments,
-    hessian,
-    residual_moments,
-    rhs,
-    robust_weights,
-    solve_normal,
-)
-from ..ops.transforms import (
-    TransformType,
-    compose_inverse,
-    jacobian_fields,
-    nparams,
-    pad_params,
-    param_preconditioner,
-    transform_grid,
-)
-from ..ops.warp import bicubic_sample, domain_mask
+from ..models.ic import ICState, _system_builder, _trip
+from ..ops.normal_equations import RobustLoss
+from ..ops.transforms import TransformType, pad_params
 from .mesh import PAIRS_AXIS, TILE_AXIS, Mesh
 
 __all__ = ["tiled_ic_solve", "tiled_pyramidal_solve"]
@@ -129,16 +114,14 @@ def _build_tiled_fn(
     hessian_chunk: int,
     shape: tuple,
     dtype_name: str,
-    use_pallas: bool = False,
-    interpret: bool = False,
+    path: str = "xla",
     divergence_guard: bool = True,
     delta_cap: bool = True,
 ):
     """Build + jit the shard_map program for one static configuration.
 
     Cached on every static argument (jit keys on function identity, so a
-    fresh closure per call would retrace/recompile each solve — these
-    programs can take minutes to compile on TPU)."""
+    fresh closure per call would retrace/recompile each solve)."""
     from ..models.ic import effective_delta
 
     bsz, hh, ww, _ = shape
@@ -148,131 +131,39 @@ def _build_tiled_fn(
     if delta_cap:
         delta = effective_delta(delta, hh, ww)   # same cap as models.ic
     is_robust = robust is not RobustLoss.QUADRATIC
-    scale = param_preconditioner(ttype, hh, ww) if precondition else None
-    live = np.zeros(cts.NPARAMS_MAX, np.float32)
-    live[: nparams(ttype)] = 1.0
     lam0 = lam if lam > 0 else cts.LAMBDA_0
-
-    # Pallas inside shard_map: each device computes only its local output
-    # rows (gx/gy carry the global y_offset) while sampling the replicated
-    # full moving image. With preconditioning + f32 the per-iteration work
-    # is the SAME fused moment kernel as the flagship solver
-    # (ops/pallas/fused_iter.py, y_offset = this shard's global row
-    # origin) and only the [B, K, 8, 8] moment partials cross the
-    # interconnect; otherwise the Pallas warp feeds the XLA moment chain.
-    pallas_mode = None
-    if use_pallas:
-        from ..ops.pallas.warp import pad_planar, plan_warp_mode
-
-        pallas_mode = plan_warp_mode(hh, ww, shape[3], jnp.dtype(dtype_name))
-    fused = (pallas_mode is not None and precondition
-             and dt == jnp.float32)
-    if fused:
-        from ..ops.pallas.fused_iter import fused_iter_moments
-        from ..ops.pallas.normal_eq import _assemble_b, _assemble_h
 
     def shard_fn(i1_loc, i2_full, p0_loc):
         y0 = lax.axis_index(TILE_AXIS) * h_loc
         b_loc = i1_loc.shape[0]
-        i2p = pad_planar(i2_full) if pallas_mode else None
-
         ix, iy = _halo_gradients(i1_loc, nt, y0, hh, delta, nanifoutside)
-        gxx, gxy, gyy = grad_moments(ix, iy)
-        if fused:
-            # Same packed-template layout as plan_fused_iter, built from
-            # the LOCAL row shard.
-            parts = [i1_loc, ix, iy]
-            if is_robust:
-                parts.append(jnp.stack([gxx, gxy, gyy], axis=-1))
-            tplp = pad_planar(jnp.concatenate(parts, axis=-1))
-        jx, jy = jacobian_fields(ttype, h_loc, ww, dtype=dt, scale=scale,
-                                 y_offset=y0)
-
-        h_quad = None
-        if not is_robust:
-            h_quad = lax.psum(
-                hessian(gxx, gxy, gyy, jx, jy, chunk=hessian_chunk),
-                TILE_AXIS)
-
+        # Each device forms only its local rows' partial system (the
+        # replicated full moving image is sampled at global coordinates);
+        # one psum per trip makes it the full-frame system. On the kernel
+        # path only the [B, K, 5, 5] moment partials cross the interconnect.
+        scale, system = _system_builder(
+            i1_loc, i2_full, ix, iy, ttype, robust=robust,
+            nanifoutside=nanifoutside, delta=delta,
+            precondition=precondition, hessian_chunk=hessian_chunk,
+            path=path, y_offset=y0,
+            reduce=lambda x: lax.psum(x, TILE_AXIS))
         p0p = pad_params(jnp.asarray(p0_loc, dt))
 
-        def _anneal(lam_cur, act):
-            if not is_robust or lam > 0:
-                return lam_cur
-            nxt = jnp.where(
-                lam_cur > cts.LAMBDA_N,
-                jnp.maximum(lam_cur * cts.LAMBDA_RATIO, cts.LAMBDA_N),
-                lam_cur)
-            return jnp.where(act, nxt, lam_cur)
-
         def body(s):
-            gx, gy = transform_grid(s.p, ttype, h_loc, ww, y_offset=y0)
-            if fused:
-                # ONE kernel per iteration per shard; global-y moment
-                # basis, so the psum'd partials are exactly the
-                # full-frame moments of models.ic's fused path.
-                m = fused_iter_moments(
-                    i2p, tplp, gx, gy, s.lam,
-                    height=hh, width=ww,
-                    robust=robust if is_robust else None,
-                    nanifoutside=nanifoutside, delta=delta,
-                    interpret=interpret,
-                    stream=(pallas_mode == "stream"), y_offset=y0)
-                m = lax.psum(m, TILE_AXIS)
-                if is_robust:
-                    h = _assemble_h(m[:, :3], ttype, hh, ww)
-                    b = _assemble_b(m[:, 3:], ttype, hh, ww)
-                else:
-                    h, b = h_quad, _assemble_b(m, ttype, hh, ww)
-            else:
-                if pallas_mode:
-                    from ..ops.pallas.warp import pallas_warp_planar
-
-                    iw = pallas_warp_planar(
-                        i2p, gx, gy, hh, ww, interpret=interpret,
-                        stream=(pallas_mode == "stream")
-                    ).transpose(0, 2, 3, 1)
-                else:
-                    iw = bicubic_sample(i2_full, gx, gy)
-                valid = domain_mask(gx, gy, hh, ww, delta)
-                di = _masked_residual(iw, valid, i1_loc, nanifoutside)
-
-                if is_robust:
-                    rho = robust_weights(di, s.lam[:, None, None], robust)
-                    h = lax.psum(
-                        hessian(gxx, gxy, gyy, jx, jy, weights=rho,
-                                chunk=hessian_chunk), TILE_AXIS)
-                else:
-                    rho, h = None, h_quad
-                u, v = residual_moments(ix, iy, di)
-                b = lax.psum(rhs(u, v, jx, jy, weights=rho), TILE_AXIS)
-
-            act = s.active
-            lam_next = _anneal(s.lam, act)
-            dp, err = solve_normal(h, b, live, precond=scale)
-
-            p_new = compose_inverse(s.p, pad_params(dp), ttype)
-            if divergence_guard:
-                bad = act & _lost_overlap(p_new, ttype, hh, ww)
-                p_new = jnp.where(bad[:, None], p0p, p_new)
-            else:
-                bad = jnp.zeros_like(act)
-            p = jnp.where(act[:, None], p_new, s.p)
-            error = jnp.where(act, err, s.error)
-            niters = s.niters + act.astype(s.niters.dtype)
-            still = act & (err > tol) & ~bad & (s.it + 1 < max_iter)
-            return ICState(p=p, error=error, lam=lam_next, it=s.it + 1,
-                           niters=niters, active=still,
-                           diverged=s.diverged | bad)
+            h, b = system(s.p, s.lam)
+            return _trip(s, h, b, p0p, ttype=ttype, height=hh, width=ww,
+                         scale=scale, tol=tol, max_iter=max_iter,
+                         annealing=is_robust and lam <= 0,
+                         divergence_guard=divergence_guard)
 
         # Variance-checked shard_map: per-pair carries start with the
-        # pairs-varying type the loop body produces. (With use_pallas the
-        # program runs check_vma=False — pallas_call outputs carry no vma
-        # type — so pcast degenerates to identity there.)
-        if pallas_mode:
-            vary = lambda x: x
+        # pairs-varying type the loop body produces. (The kernel paths run
+        # check_vma=False — pallas_call outputs carry no vma type — so the
+        # pcast is skipped there.)
+        if path == "xla":
+            vary = lambda x: jax.lax.pcast(x, PAIRS_AXIS, to="varying")  # noqa: E731
         else:
-            vary = lambda x: jax.lax.pcast(x, PAIRS_AXIS, to="varying")
+            vary = lambda x: x  # noqa: E731
         init = ICState(
             p=p0p,
             error=vary(jnp.full((b_loc,), 1e10, dt)),
@@ -299,7 +190,7 @@ def _build_tiled_fn(
         mesh=mesh,
         in_specs=(P(PAIRS_AXIS, TILE_AXIS), P(PAIRS_AXIS), pp),
         out_specs=state_specs,
-        check_vma=not pallas_mode,
+        check_vma=(path == "xla"),
     )
     return jax.jit(fn)
 
@@ -319,8 +210,7 @@ def tiled_ic_solve(
     delta: int = 10,
     precondition: bool = True,
     hessian_chunk: int = 16384,
-    use_pallas: bool = False,
-    interpret: bool = False,
+    path: str = "xla",
     divergence_guard: bool = True,
     delta_cap: bool = True,
 ):
@@ -335,11 +225,9 @@ def tiled_ic_solve(
     Args:
       i1, i2: [B, H, W, C]; B divisible by the pairs axis, H by the tile
         axis. p0: [B, 8].
-      use_pallas: run each device's per-iteration work through Mosaic
-        under shard_map — with preconditioning + f32 this is the same
-        fused warp->moments kernel as models.ic (one [B, K, 8, 8] psum per
-        iteration crosses the interconnect); interpret runs the kernels in
-        the Pallas interpreter (CPU lanes).
+      path: per-trip path (models.ic.PATHS); "kernel" and "interpret" run
+        the fused iteration kernel on each device's rows, with one
+        [B, K, 5, 5] moment psum per trip.
 
     Returns:
       ICState (p/error/lam/niters/diverged sharded over pairs; `it` is the
@@ -357,8 +245,7 @@ def tiled_ic_solve(
                          float(lam), bool(nanifoutside), int(delta),
                          bool(precondition), int(hessian_chunk),
                          tuple(i1.shape), jnp.dtype(dt).name,
-                         bool(use_pallas), bool(interpret),
-                         bool(divergence_guard), bool(delta_cap))
+                         path, bool(divergence_guard), bool(delta_cap))
     return fn(i1, i2, pad_params(jnp.asarray(p0, dt)))
 
 
@@ -380,8 +267,7 @@ def tiled_pyramidal_solve(
     pyramid_method: str = "ipol",
     precondition: bool = True,
     hessian_chunk: int = 16384,
-    use_pallas: bool = False,
-    interpret: bool = False,
+    path: str = "xla",
     divergence_guard: bool = True,
     delta_cap: bool = True,
 ):
@@ -394,43 +280,56 @@ def tiled_pyramidal_solve(
     levels whose odd heights don't split; their cost is negligible and
     XLA's SPMD partitioner still shards them over pairs). Parameters are
     rescaled between levels exactly like the reference driver
-    (src/inverse_compositional_algorithm.py:340-372).
+    (src/inverse_compositional_algorithm.py:340-372). The whole pyramid
+    is one jitted program, cached per static setting, so a warm call
+    reuses it.
 
     Returns (state, per_scale) like pyramidal_solve.
     """
+    fn = _build_pyramid_fn(
+        ttype, mesh, int(nscales), float(nu), pyramid_method,
+        tol=float(tol), max_iter=int(max_iter), robust=robust,
+        lam=float(lam), nanifoutside=bool(nanifoutside), delta=int(delta),
+        precondition=bool(precondition), hessian_chunk=int(hessian_chunk),
+        path=path, divergence_guard=bool(divergence_guard),
+        delta_cap=bool(delta_cap))
+    return fn(i1, i2, p0)
+
+
+@lru_cache(maxsize=64)
+def _build_pyramid_fn(ttype: TransformType, mesh: Mesh, nscales: int,
+                      nu: float, pyramid_method: str, **kw):
+    """Jit the tiled pyramid for one static configuration (cached for the
+    same reason as _build_tiled_fn)."""
     from ..models.ic import ic_solve
     from ..ops.pyramid import build_pyramid, pyramid_shapes
     from ..ops.transforms import zoom_in_params
 
-    _, hh, ww, _ = i1.shape
     nt = mesh.shape[TILE_AXIS]
-    shapes = pyramid_shapes(hh, ww, nscales, nu)
-    pyr1 = build_pyramid(i1, nscales, nu, pyramid_method)
-    pyr2 = build_pyramid(i2, nscales, nu, pyramid_method)
 
-    p = pad_params(jnp.asarray(p0, i1.dtype))
-    for s in range(1, nscales):
-        (fh, fw), (ch, cw) = shapes[s - 1], shapes[s]
-        p = zoom_in_params(p, ttype, fw, fh, cw, ch)
+    def run(i1, i2, p0):
+        _, hh, ww, _ = i1.shape
+        shapes = pyramid_shapes(hh, ww, nscales, nu)
+        pyr1 = build_pyramid(i1, nscales, nu, pyramid_method)
+        pyr2 = build_pyramid(i2, nscales, nu, pyramid_method)
 
-    per_scale = []
-    state = None
-    kw = dict(tol=tol, max_iter=max_iter, robust=robust, lam=lam,
-              nanifoutside=nanifoutside, delta=delta,
-              precondition=precondition, hessian_chunk=hessian_chunk,
-              divergence_guard=divergence_guard, delta_cap=delta_cap)
-    for s in range(nscales - 1, -1, -1):
-        lh = shapes[s][0]
-        if lh % nt == 0:
-            state = tiled_ic_solve(pyr1[s], pyr2[s], p, ttype, mesh=mesh,
-                                   use_pallas=use_pallas,
-                                   interpret=interpret, **kw)
-        else:
-            state = ic_solve(pyr1[s], pyr2[s], p, ttype,
-                             use_pallas=use_pallas, interpret=interpret,
-                             **kw)
-        per_scale.append(state)
-        if s > 0:
+        p = pad_params(jnp.asarray(p0, i1.dtype))
+        for s in range(1, nscales):
             (fh, fw), (ch, cw) = shapes[s - 1], shapes[s]
-            p = zoom_in_params(state.p, ttype, cw, ch, fw, fh)
-    return state, per_scale
+            p = zoom_in_params(p, ttype, fw, fh, cw, ch)
+
+        per_scale = []
+        state = None
+        for s in range(nscales - 1, -1, -1):
+            if shapes[s][0] % nt == 0:
+                state = tiled_ic_solve(pyr1[s], pyr2[s], p, ttype, mesh=mesh,
+                                       **kw)
+            else:
+                state = ic_solve(pyr1[s], pyr2[s], p, ttype, **kw)
+            per_scale.append(state)
+            if s > 0:
+                (fh, fw), (ch, cw) = shapes[s - 1], shapes[s]
+                p = zoom_in_params(state.p, ttype, cw, ch, fw, fh)
+        return state, per_scale
+
+    return jax.jit(run)

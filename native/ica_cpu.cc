@@ -1,4 +1,4 @@
-// Native CPU kernels for the TPU-native inverse-compositional framework.
+// Native CPU kernels for the inverse-compositional alignment engine.
 //
 // Plays the role the reference implementation delegates to Numba-compiled
 // kernels (reference: src/bicubic_interpolation.py:120-152 handwritten warp,
@@ -6,7 +6,7 @@
 // steepest-descent images): a portable, OpenMP-parallel native engine used
 //  (a) as an accelerator-independent correctness oracle for the JAX/Pallas
 //      path, and
-//  (b) as a fast CPU fallback for driving/debugging without a TPU.
+//  (b) as a fast CPU fallback for driving/debugging without an accelerator.
 //
 // Algomithmic semantics follow the IPOL "Inverse Compositional Algorithm
 // for Parametric Registration" (2016.153): Keys cubic convolution with

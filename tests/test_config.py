@@ -28,9 +28,12 @@ def test_roundtrip(tmp_path):
 
 
 def test_reads_reference_config():
-    """The reference repo's own config.ini (with inline comments) parses
-    (reference: config.ini:1-21)."""
-    cfgs = read_config_file("/root/reference/config.ini")
+    """A config.ini in the reference's format (its three sections, with
+    inline comments; reference: config.ini:1-21) parses."""
+    import os
+
+    cfgs = read_config_file(os.path.join(os.path.dirname(__file__), "data",
+                                         "config.ini"))
     pyr = cfgs["pyramidal_inverse_compositional_algorithm"]
     assert pyr.transform is TransformType.EUCLIDEAN
     assert pyr.nscales == 5

@@ -137,7 +137,7 @@ def test_align_reports_diverged_flag():
     h, w = 48, 64
     img = _smooth(h, w)
     cfg = AlignConfig(transform=TransformType.TRANSLATION, nscales=1,
-                      delta=3, use_pallas=False)
+                      delta=3)
     res = align(img, img, cfg, p0=jnp.asarray([5.0 * w, 0.0]))
     assert bool(res.diverged)
     res2 = align(img, img, cfg)
@@ -155,7 +155,7 @@ def test_guard_does_not_perturb_healthy_runs(nscales):
     gx, gy = transform_grid(p_gt, TransformType.TRANSLATION, h, w)
     i1 = bicubic_sample(img, gx, gy)
     cfg_on = AlignConfig(transform=TransformType.TRANSLATION,
-                         nscales=nscales, use_pallas=False)
+                         nscales=nscales)
     cfg_off = cfg_on.replace(divergence_guard=False)
     r_on = align(i1, img, cfg_on)
     r_off = align(i1, img, cfg_off)
@@ -166,7 +166,7 @@ def test_guard_does_not_perturb_healthy_runs(nscales):
 def test_hard_motions_converge_without_false_freezes():
     """Bench-style hard mixed motions (scaled to a small frame) must all
     genuinely converge — the guard's speedup may not come from freezing
-    recoverable pairs (round-4 honesty audit, see TPU_VALIDATION_r04)."""
+    recoverable pairs."""
     from inverse_compositional_algorithm_tpu.ops.warp import bicubic_sample
 
     h, w, b = 96, 144, 4
@@ -186,7 +186,7 @@ def test_hard_motions_converge_without_false_freezes():
     i1 = bicubic_sample(i2, gx, gy)
 
     cfg = AlignConfig(transform=TransformType.HOMOGRAPHY, nscales=4,
-                      robust=RobustLoss.CHARBONNIER, use_pallas=False)
+                      robust=RobustLoss.CHARBONNIER)
     res = align(i1, i2, cfg)
     assert not np.asarray(res.diverged).any(), "guard must not fire here"
     err = np.abs(np.asarray(res.p) - p).max()

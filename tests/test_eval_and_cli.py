@@ -37,8 +37,7 @@ def test_random_params_shapes():
 
 
 def test_evaluate_recovers_random_motions(image_stack):
-    cfg = AlignConfig(transform=TransformType.EUCLIDEAN, nscales=2, delta=6,
-                      use_pallas=False)
+    cfg = AlignConfig(transform=TransformType.EUCLIDEAN, nscales=2, delta=6)
     r = evaluate(image_stack, cfg, magnitude=1.5)
     assert r.batch == 3
     assert r.mae < 0.05, f"param MAE too high: {r}"
@@ -47,8 +46,7 @@ def test_evaluate_recovers_random_motions(image_stack):
 
 
 def test_evaluate_pyramid_sweep(image_stack):
-    cfg = AlignConfig(transform=TransformType.TRANSLATION, delta=6,
-                      use_pallas=False)
+    cfg = AlignConfig(transform=TransformType.TRANSLATION, delta=6)
     rs = evaluate_pyramid_levels(image_stack, cfg, levels=(2, 3),
                                  magnitude=1.0)
     assert [r.nscales for r in rs] == [2, 3]

@@ -13,8 +13,13 @@ from inverse_compositional_algorithm_tpu.ops.transforms import (
 )
 from inverse_compositional_algorithm_tpu.ops.warp import warp_image
 
-pytestmark = pytest.mark.skipif(not nb.available(),
-                                reason="native library not built")
+
+@pytest.fixture(autouse=True)
+def _native_library():
+    """Build (first use) or load the library inside the test, never at
+    import, so every test worker collects the same tests."""
+    if not nb.available():
+        pytest.skip("native library could not be built")
 
 
 @pytest.mark.parametrize("ttype,p", [

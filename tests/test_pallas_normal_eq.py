@@ -1,13 +1,11 @@
-"""Fused Pallas moment kernel vs the XLA oracle (interpret mode on CPU)."""
+"""Moment form of the normal equations (the fused kernel's reference) vs
+numpy and the plain Hessian / right-hand side."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from inverse_compositional_algorithm_tpu.ops.pallas.normal_eq import (
-    fused_hessian, fused_normal_eq, fused_rhs, weighted_moments,
-)
 from inverse_compositional_algorithm_tpu.ops import normal_equations as ne
 from inverse_compositional_algorithm_tpu.ops.transforms import (
     TransformType, jacobian_fields, param_preconditioner,
@@ -25,9 +23,15 @@ def maps():
             for m in (gx * gx, gx * gy, gy * gy, gx * r, gy * r)]
 
 
+def _moments(maps, **kw):
+    b, h, w = maps[0].shape
+    return ne.coordinate_moments(jnp.stack(maps, axis=1), float(max(h, w)),
+                                 **kw)
+
+
 def test_moments_match_numpy(maps):
     stack = jnp.stack(maps, axis=1)
-    got = np.asarray(weighted_moments(stack, tile_h=8, interpret=True))
+    got = np.asarray(_moments(maps))
     b, k, h, w = stack.shape
     l = float(max(h, w))
     xs = np.arange(w) / l
@@ -35,20 +39,24 @@ def test_moments_match_numpy(maps):
     xp = np.stack([xs ** a for a in range(5)], -1)
     yp = np.stack([ys ** c for c in range(5)], -1)
     exp = np.einsum("qkhw,wa,hc->qkca", np.asarray(stack, np.float64), xp, yp)
-    np.testing.assert_allclose(got[:, :, :5, :5], exp, rtol=2e-5, atol=1e-4)
-    assert (got[:, :, 5:, :] == 0).all() and (got[:, :, :, 5:] == 0).all()
+    assert got.shape == (b, k, 5, 5)
+    np.testing.assert_allclose(got, exp, rtol=2e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("ttype", list(TransformType),
                          ids=[t.name for t in TransformType])
 def test_fused_matches_xla(maps, ttype):
+    """The assembly turns the moments into the preconditioned H and b of
+    hessian() / rhs() for every transform."""
     b, h, w = maps[0].shape
     s = param_preconditioner(ttype, h, w)
     jx, jy = jacobian_fields(ttype, h, w, dtype=jnp.float64, scale=s)
     m64 = [jnp.asarray(np.asarray(m), jnp.float64) for m in maps]
     h_ref = np.asarray(ne.hessian(*m64[:3], jx, jy))
     b_ref = np.asarray(ne.rhs(m64[3], m64[4], jx, jy))
-    hh, bb = fused_normal_eq(*maps, ttype=ttype, interpret=True)
+    m = _moments(maps)
+    hh = ne.assemble_hessian(m[:, :3], ttype)
+    bb = ne.assemble_rhs(m[:, 3:], ttype)
     np.testing.assert_allclose(np.asarray(hh), h_ref,
                                atol=2e-4 * np.abs(h_ref).max())
     np.testing.assert_allclose(np.asarray(bb), b_ref,
@@ -56,16 +64,29 @@ def test_fused_matches_xla(maps, ttype):
 
 
 def test_split_entry_points(maps):
+    """Moments of the Hessian maps alone and of the rhs maps alone assemble
+    to the same system as one stack of all five."""
     ttype = TransformType.HOMOGRAPHY
-    h_all, b_all = fused_normal_eq(*maps, ttype=ttype, interpret=True)
-    h_only = fused_hessian(*maps[:3], ttype=ttype, interpret=True)
-    b_only = fused_rhs(*maps[3:], ttype=ttype, interpret=True)
-    np.testing.assert_allclose(np.asarray(h_only), np.asarray(h_all), rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(b_only), np.asarray(b_all), rtol=1e-6)
+    m_all = _moments(maps)
+    h_only = ne.assemble_hessian(_moments(maps[:3]), ttype)
+    b_only = ne.assemble_rhs(_moments(maps[3:]), ttype)
+    np.testing.assert_allclose(np.asarray(h_only),
+                               np.asarray(ne.assemble_hessian(m_all[:, :3], ttype)),
+                               rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(b_only),
+                               np.asarray(ne.assemble_rhs(m_all[:, 3:], ttype)),
+                               rtol=1e-6)
 
 
 def test_uneven_tiling(maps):
+    """Row blocks with their global y_offset sum to the full-frame moments,
+    whatever the (uneven) split."""
+    b, h, w = maps[0].shape
     stack = jnp.stack(maps, axis=1)
-    a = np.asarray(weighted_moments(stack, tile_h=8, interpret=True))
-    c = np.asarray(weighted_moments(stack, tile_h=64, interpret=True))
-    np.testing.assert_allclose(a, c, rtol=1e-5, atol=1e-5)
+    full = np.asarray(_moments(maps))
+    for cuts in ((0, 8, 16, h), (0, 5, h)):
+        parts = sum(
+            np.asarray(ne.coordinate_moments(stack[:, :, r0:r1],
+                                              float(max(h, w)), y_offset=r0))
+            for r0, r1 in zip(cuts[:-1], cuts[1:]))
+        np.testing.assert_allclose(parts, full, rtol=1e-5, atol=1e-5)

@@ -27,7 +27,7 @@ from inverse_compositional_algorithm_tpu.ops.transforms import TransformType
 
 def _mae(i1, i2, gt, robust, lam=0.0):
     cfg = AlignConfig(transform=TransformType.TRANSLATION, nscales=2,
-                      robust=robust, lam=lam, use_pallas=False)
+                      robust=robust, lam=lam)
     res = align(i1, i2, cfg)
     assert not np.asarray(res.diverged).any()
     return float(np.abs(np.asarray(res.p)[:, :2] - gt[:, :2]).mean())

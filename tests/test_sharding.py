@@ -71,6 +71,38 @@ def test_tile_sharding_matches(batch8):
 
 
 @requires_mesh
+def test_tile_rows_is_one_cached_program(batch8, monkeypatch):
+    """A warm align_sharded(tile_rows=True) call reuses the compiled program:
+    the row-split pyramid is traced once, not on every call. 60 rows over 4
+    tiles leave the coarse level (30 rows) to the unsplit solver, inside
+    the same program."""
+    from inverse_compositional_algorithm_tpu.parallel import sharded
+
+    i1, i2, gts = batch8
+    i1, i2 = i1[:2, :60], i2[:2, :60]
+    traces = []
+    real = sharded.tiled_pyramidal_solve
+
+    def counting(*args, **kwargs):
+        traces.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(sharded, "tiled_pyramidal_solve", counting)
+    sharded._sharded_fn.cache_clear()
+    try:
+        cfg = ica.AlignConfig(transform=TransformType.TRANSLATION, nscales=2,
+                              delta=6)
+        mesh = make_mesh(pairs=2, tile=4)
+        first = align_sharded(i1, i2, cfg, mesh=mesh, tile_rows=True)
+        second = align_sharded(i1, i2, cfg, mesh=mesh, tile_rows=True)
+    finally:
+        sharded._sharded_fn.cache_clear()
+    assert len(traces) == 1
+    np.testing.assert_array_equal(np.asarray(first.p), np.asarray(second.p))
+    np.testing.assert_allclose(np.asarray(first.p)[:, :2], gts[:2], atol=5e-3)
+
+
+@requires_mesh
 def test_pyramid_sharded(batch8):
     i1, i2, gts = batch8
     cfg = ica.AlignConfig(transform=TransformType.TRANSLATION, nscales=2, delta=6)

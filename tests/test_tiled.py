@@ -61,20 +61,16 @@ def test_tiled_validates_divisibility(make_pair):
 
 
 def test_tiled_pallas_warp_matches(make_pair):
-    """use_pallas=True swaps the XLA gather for the Pallas tile warp under
-    shard_map (interpreter on the CPU lane); results must match the
-    XLA-warp tiled solve to summation-order tolerance."""
-    from inverse_compositional_algorithm_tpu.parallel.tiled import (
-        _build_tiled_fn,  # noqa: F401  (cache exercised via public API)
-    )
-
+    """The kernel path (interpreter) runs the fused iteration kernel on
+    each row shard under shard_map; results must match the plain tiled
+    solve to summation-order tolerance."""
     p_gt = [1.5, -1.0]
     i1, i2, p0 = _pair_batch(make_pair, p_gt, TransformType.TRANSLATION)
     mesh = make_mesh(pairs=2, tile=4)
     st_x = tiled_ic_solve(i1, i2, p0, TransformType.TRANSLATION, mesh=mesh,
                           delta=8)
     st_p = tiled_ic_solve(i1, i2, p0, TransformType.TRANSLATION, mesh=mesh,
-                          delta=8, use_pallas=True, interpret=True)
+                          delta=8, path="interpret")
     np.testing.assert_allclose(np.asarray(st_p.p), np.asarray(st_x.p),
                                atol=2e-4)
     np.testing.assert_allclose(np.asarray(st_p.p)[0, :2], p_gt, atol=2e-3)
@@ -116,18 +112,16 @@ def _smooth(h, w, seed=0):
 
 
 def test_tiled_fused_robust_matches(make_pair):
-    """Robust IRLS through the fused moment kernel under shard_map
-    (use_pallas + precondition + f32 activates fused_iter_moments with a
-    per-shard y_offset); must match the single-device fused-path solver."""
+    """Robust IRLS through the fused iteration kernel under shard_map (a
+    per-shard y_offset); must match the single-device kernel-path solver."""
     p_gt = [1.5, -1.0, 0.01]
     i1, i2, p0 = _pair_batch(make_pair, p_gt, TransformType.EUCLIDEAN)
     mesh = make_mesh(pairs=2, tile=4)
     st_t = tiled_ic_solve(i1, i2, p0, TransformType.EUCLIDEAN, mesh=mesh,
                           delta=8, robust=RobustLoss.CHARBONNIER,
-                          use_pallas=True, interpret=True)
+                          path="interpret")
     st_s = ic_solve(i1, i2, p0, TransformType.EUCLIDEAN, delta=8,
-                    robust=RobustLoss.CHARBONNIER, use_pallas=True,
-                    interpret=True)
+                    robust=RobustLoss.CHARBONNIER, path="interpret")
     np.testing.assert_allclose(np.asarray(st_t.p), np.asarray(st_s.p),
                                atol=5e-4)
     np.testing.assert_allclose(np.asarray(st_t.lam), np.asarray(st_s.lam),
